@@ -1,8 +1,9 @@
-"""The CUDA check engine: host wrapper around the tier-1 BFS kernels.
+"""The CUDA check engine: host wrapper around the tier-1 and tier-2 kernels.
 
 The port's counterpart of the JAX package's ``engine/tpu.py``
 ``DeviceCheckEngine`` as it runs with ``fused_dispatch`` off and Leopard
-disabled: callers hand it relation tuples, it answers allow/deny.  It
+disabled (the unfused cascade): callers hand it relation tuples, it
+answers allow/deny.  It
 
 1. projects the store into a snapshot (``delta.build_snapshot_cols``) and
    uploads ``Snapshot.check_arrays()`` to the device once per store
@@ -11,11 +12,13 @@ disabled: callers hand it relation tuples, it answers allow/deny.  It
 2. interns query strings to dense ids (unknown strings miss everywhere,
    which reproduces "unknown namespace => not allowed");
 3. classifies each query: pure-OR queries run the tier-1 BFS on the card
-   (``fastpath.run_fast_packed``), queries that can reach AND / NOT go to
-   the exact host oracle, and queries whose lookup is a client error go to
-   the oracle, which raises the reference's typed error;
-4. retries the not-found overflow tail once on the card at
-   ``retry_scale``x caps, then answers what is still over on the oracle.
+   (``fastpath.run_fast_packed``); queries that can reach AND / NOT
+   (general rows) run the tier-2 algebra program on the card
+   (``algebra.run_general_packed``); queries whose lookup is a client
+   error go to the oracle, which raises the reference's typed error;
+4. retries each tier's overflow tail once on the card at ``retry_scale``x
+   caps (a general retry also gets ``gen_levels_max`` levels), then
+   answers what is still over, or ERR, on the exact host oracle.
 
 A CUDA error propagates: there is no fallback from the card to the host.
 """
@@ -26,15 +29,17 @@ import hashlib
 import threading
 import time
 from collections import Counter
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ketotpu_torch import kernels
 from ketotpu_torch.api.types import RelationTuple
+from ketotpu_torch.engine import algebra as alg
 from ketotpu_torch.engine import delta as dl
 from ketotpu_torch.engine import fastpath as fp
+from ketotpu_torch.engine.optable import R_ERR, R_IS
 from ketotpu_torch.engine.oracle import (
     DEFAULT_MAX_DEPTH,
     DEFAULT_MAX_WIDTH,
@@ -50,6 +55,34 @@ def _bucket(n: int, floor: int = 256) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _bucket15(n: int, floor: int = 64) -> int:
+    """Smallest of {2^k, 1.5 * 2^k} >= n: every buffer of the general
+    program scales with it, and the half-octave step bounds the padding at
+    about a third."""
+    b = floor
+    while b < n:
+        if b * 3 // 2 >= n:
+            return b * 3 // 2
+        b *= 2
+    return b
+
+
+#: per-level task multipliers (units of general roots) of the algebra
+#: skeleton before the first occupancy report: level 1 holds the rewrite
+#: roots plus root expansion edges, the program fans out over the next few
+#: levels, then tainted recursion thins out
+_GEN_MULT_HEAD = (3, 4, 4, 4, 3, 3, 2, 2, 2, 2)
+
+
+def _gen_mults(d: int):
+    return tuple(
+        _GEN_MULT_HEAD[i] if i < len(_GEN_MULT_HEAD) else 1 for i in range(d)
+    )
+
+#: one general dispatch's static shapes: (sizes, fast_b, fast_sched, vcap)
+GenSchedule = Tuple[Tuple[int, ...], int, Tuple[Tuple[int, int], ...], int]
 
 
 def upload(arrays: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
@@ -89,6 +122,11 @@ class DeviceCheckEngine:
         arena: int = 16384,
         max_batch: int = 8192,
         retry_scale: int = 4,
+        gen_arena: int = 8192,
+        vcap: int = 4096,
+        gen_levels: int = 12,
+        gen_levels_max: int = 24,
+        occ_headroom: float = 1.15,
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -106,6 +144,16 @@ class DeviceCheckEngine:
         self.arena = arena
         self.max_batch = min(max_batch, frontier)
         self.retry_scale = retry_scale
+        self.gen_arena = gen_arena  # general skeleton: per-level task cap
+        self.vcap = vcap  # general visited-set capacity
+        vs = alg._vs_size(retry_scale * vcap)
+        if self.device.type == "cuda" and vs > kernels.VISITED_SMEM_SLOTS:
+            raise ValueError(
+                f"vcap {vcap}: the retry's visited set of {vs} slots exceeds "
+                f"the kernel's {kernels.VISITED_SMEM_SLOTS}"
+            )
+        self.gen_levels = gen_levels  # skeleton levels, first pass
+        self.gen_levels_max = gen_levels_max  # skeleton levels, retry
         self.oracle = CheckEngine(
             store,
             namespace_manager,
@@ -123,19 +171,32 @@ class DeviceCheckEngine:
         # demand-adaptive level scheduling: EMA of the per-level frontier
         # occupancy (units of active roots), None until the first batch
         self._occ_ema: Optional[np.ndarray] = None
-        self.occ_headroom = 1.15
+        # the general program's: skeleton tasks per level, fast leaves and
+        # the sub-run's live leaves per level, all per root
+        self._gen_occ_ema: Optional[np.ndarray] = None
+        self._gen_fast_ema: Optional[float] = None
+        self._gen_fast_occ_ema: Optional[np.ndarray] = None
+        # the first demand-sized general schedule per (Q, boost), frozen
+        self._gen_sched_cache: Dict[Tuple[int, int], GenSchedule] = {}
+        self._gen_lock = threading.Lock()
+        self.occ_headroom = occ_headroom
         self.fallbacks = 0  # queries answered by the host oracle
         self.retries = 0  # queries re-run at retry_scale x caps
         self.rebuilds = 0  # projections + uploads
         # device batches enqueued, per (Q, frontier, arena, boost): every
         # batch of one shape launches the same kernels at the same sizes
         self.dispatch_shapes: Counter = Counter()
+        # general dispatches, per (Q, boost, schedule)
+        self.general_shapes: Counter = Counter()
+        self.general_rows = 0  # rows sent to the general tier
+        self.general_retries = 0  # of those, rows re-run at retry caps
         self.projection_build_s = 0.0  # host snapshot build of the last one
         self.projection_upload_s = 0.0  # its upload, synchronized
         # host wall seconds per batch_check phase: encode (+ classify, and
         # the re-projection when the store moved), enqueue (the level loop's wrapper calls), fetch (the one D2H copy,
         # which waits for the device), retry (enqueue + fetch of the retry
-        # dispatch), oracle
+        # dispatch), general (the general dispatch's enqueue and its fetch),
+        # general_retry (enqueue + fetch of the general retry), oracle
         self.phase_seconds: Dict[str, float] = {}
 
     def _phase(self, name: str, t0: float) -> float:
@@ -187,6 +248,8 @@ class DeviceCheckEngine:
         self.projection_upload_s = time.perf_counter() - t1
         self._snap_key = key
         self.rebuilds += 1
+        with self._gen_lock:
+            self._gen_sched_cache.clear()  # a new graph: re-adapt once
 
     def snapshot(self) -> Snapshot:
         return self._view()[0]
@@ -194,6 +257,12 @@ class DeviceCheckEngine:
     def device_tables(self) -> Dict[str, torch.Tensor]:
         """The uploaded check arrays of the current projection."""
         return self._view()[1]
+
+    def encode_general(self, queries: Sequence[RelationTuple], rest_depth: int = 0):
+        """(encoded columns, general row indices) of one chunk: what
+        :meth:`pack_general` takes."""
+        _g, enc, _err, general = self._prepare(queries, rest_depth)
+        return enc, np.flatnonzero(general)
 
     def pack_queries(self, queries: Sequence[RelationTuple], rest_depth: int = 0):
         """(qpack, err, general) of one chunk: the int32[6, Qpad] block the
@@ -287,6 +356,119 @@ class DeviceCheckEngine:
         else:
             self._occ_ema = 0.5 * self._occ_ema + 0.5 * ratio
 
+    # -- the general (AND/NOT) tier's static shapes ---------------------------
+
+    def _gen_schedule(self, q: int, boost: int) -> GenSchedule:
+        """Static shapes of one general dispatch: per-level skeleton sizes,
+        the leaf buffer, the sub-run's level schedule and the visited-set
+        capacity.  The level budget is fixed per tier (``gen_levels``, the
+        retry ``gen_levels_max``).  Before the first occupancy report (and
+        at the retry) the sizes are the fixed multipliers x roots; after it
+        the first pass is demand-sized from the occupancy EMAs x headroom,
+        half-octave bucketed, and that first pick is frozen per (Q, boost)
+        so later batches reuse it."""
+        with self._gen_lock:
+            return self._gen_schedule_locked(q, boost)
+
+    def _gen_schedule_locked(self, q: int, boost: int) -> GenSchedule:
+        cached = self._gen_sched_cache.get((q, boost))
+        if cached is not None:
+            return cached
+        D = self.gen_levels if boost <= 1 else self.gen_levels_max
+        cap = boost * self.gen_arena
+        adaptive = boost <= 1 and self._gen_occ_ema is not None
+        if adaptive:
+            want = self._gen_occ_ema[:D] * self.occ_headroom
+            sizes = tuple(
+                int(min(_bucket15(max(int(np.ceil(w * q)), 64), 64), cap))
+                for w in want
+            )
+        else:
+            sizes = tuple(
+                int(min(_bucket15(m * q * boost, 64), cap))
+                for m in _gen_mults(D)
+            )
+        fmul = 2.0
+        if adaptive and self._gen_fast_ema is not None:
+            fmul = max(self._gen_fast_ema * self.occ_headroom, 1 / 16)
+        f_cap = boost * self.frontier
+        a_cap = boost * self.arena
+        fast_b = int(min(
+            _bucket15(int(np.ceil(fmul * q)) * boost, 256), f_cap
+        ))
+        if adaptive and self._gen_fast_occ_ema is not None:
+            # sub-run levels demand-sized in units of roots; level 0 is the
+            # leaf buffer
+            fls = [fast_b] + [
+                int(min(_bucket15(max(int(np.ceil(w * q)), 64), 64), f_cap))
+                for w in self._gen_fast_occ_ema[1:] * self.occ_headroom
+            ]
+            fast_sched = tuple(
+                (fl,
+                 fp.PROBE_ONLY_ARENA if i == len(fls) - 1
+                 else min(4 * fl if i == 0 else 2 * fl, a_cap))
+                for i, fl in enumerate(fls)
+            )
+        else:
+            fast_sched = fp.level_schedule(fast_b, f_cap, a_cap, self.max_depth)
+        vcap = boost * self.vcap
+        if adaptive:
+            # the visited set serves tainted expansion children only; an
+            # overflow is an over bit and a retry, never a wrong verdict
+            vcap = int(min(vcap, max(1024, _bucket15(4 * q))))
+        out = (sizes, fast_b, fast_sched, vcap)
+        if adaptive:
+            self._gen_sched_cache[(q, boost)] = out
+        return out
+
+    def _update_gen_occ(self, occ: np.ndarray) -> None:
+        """Fold one first-pass general dispatch's occupancy into the EMAs,
+        in units of active roots."""
+        D = self.gen_levels
+        roots = float(occ[0])
+        if roots <= 0:
+            return
+        lev = occ[1: D + 1].astype(np.float64) / roots
+        fleaves = float(occ[D + 1]) / roots
+        focc = occ[D + 2:].astype(np.float64) / roots
+        with self._gen_lock:
+            if self._gen_occ_ema is None or len(self._gen_occ_ema) != len(lev):
+                self._gen_occ_ema = lev
+                self._gen_fast_ema = fleaves
+                self._gen_fast_occ_ema = focc
+            else:
+                self._gen_occ_ema = 0.5 * self._gen_occ_ema + 0.5 * lev
+                self._gen_fast_ema = 0.5 * self._gen_fast_ema + 0.5 * fleaves
+                if len(focc) == len(self._gen_fast_occ_ema):
+                    self._gen_fast_occ_ema = (
+                        0.5 * self._gen_fast_occ_ema + 0.5 * focc
+                    )
+                else:
+                    self._gen_fast_occ_ema = focc
+
+    def pack_general(self, enc, gi: np.ndarray, boost: int = 1):
+        """(qpack, schedule) of one general dispatch over rows ``gi`` of the
+        encoded chunk ``enc``: the int32[6, Qpad] block, padded to the
+        half-octave bucket, and its static shapes."""
+        n = len(gi)
+        qpad = min(_bucket15(n, 256), self.max_batch)
+        genc = self._pad(tuple(a[gi] for a in enc), n, qpad)
+        active = np.arange(qpad) < n
+        qpack = np.stack([*genc, active.astype(np.int32)]).astype(np.int32)
+        return qpack, self._gen_schedule(qpad, boost)
+
+    def _run_general(self, g, enc, gi: np.ndarray, boost: int = 1):
+        """Enqueue one general dispatch for rows ``gi``; returns the
+        uncollected (Packed, n) handle."""
+        qpack, sched = self.pack_general(enc, gi, boost)
+        sizes, fast_b, fast_sched, vcap = sched
+        self.general_shapes[(qpack.shape[1], boost, sched)] += 1
+        res = alg.run_general_packed(
+            g, qpack, sizes=sizes, fast_b=fast_b, fast_sched=fast_sched,
+            max_width=self.max_width, vcap=vcap,
+        )
+        return res, len(gi)
+
     # -- public API ---------------------------------------------------------
 
     def check(self, r: RelationTuple, rest_depth: int = 0) -> bool:
@@ -342,17 +524,59 @@ class DeviceCheckEngine:
                 frontier=self.frontier, arena=self.arena,
                 mults=self._adaptive_mults(),
             )
-        self._phase("enqueue", t1)
-        return enc, err, general, res, g
+        t1 = self._phase("enqueue", t1)
+        gres = gi = None
+        if general.any():
+            gi = np.flatnonzero(general)
+            gres = self._run_general(g, enc, gi)
+            self._phase("general", t1)
+        return enc, err, general, res, gi, gres, g
+
+    def _collect_general(self, g, enc, gi: np.ndarray, gres):
+        """Fetch one general dispatch (one device-to-host copy), retry its
+        overflowed rows once at ``retry_scale``x caps.  Returns (allowed,
+        fallback) of rows ``gi``: the oracle takes what is still over, ERR
+        or dirty."""
+        t0 = time.perf_counter()
+        res, n = gres
+        packed, occ = res.fetch()
+        packed = packed[:n]
+        self._update_gen_occ(occ)
+        self._phase("general", t0)
+        codes = (packed & 3).astype(np.int8)
+        over = ((packed >> 2) & 1).astype(bool)
+        # dirty: the skeleton touched stale overlay state (always 0 until
+        # the delta overlay is ported); a device retry would see it again
+        dirty = ((packed >> 3) & 1).astype(bool)
+        allowed = codes == R_IS
+        unres = over & ~dirty & (codes != R_ERR)
+        if unres.any() and self.retry_scale > 1:
+            t0 = time.perf_counter()
+            ri = np.flatnonzero(unres)
+            self.retries += len(ri)
+            self.general_retries += len(ri)
+            rres, rn = self._run_general(g, enc, gi[ri], boost=self.retry_scale)
+            rpacked, _ = rres.fetch()
+            rpacked = rpacked[:rn]
+            rcodes = (rpacked & 3).astype(np.int8)
+            allowed[ri] = rcodes == R_IS
+            over[ri] = (((rpacked >> 2) & 1) | ((rpacked >> 3) & 1)).astype(bool) \
+                | (rcodes == R_ERR)
+            codes[ri] = rcodes
+            self._phase("general_retry", t0)
+        self.general_rows += n
+        return allowed, over | dirty | (codes == R_ERR)
 
     def _collect(self, handle):
-        """Fetch one chunk's verdicts (one device-to-host copy), retry the
-        not-found overflow tail at retry_scale x caps.  Returns (allowed,
-        fallback)."""
-        enc, err, general, res, g = handle
+        """Fetch one chunk's verdicts (one device-to-host copy per tier),
+        retry each tier's overflow tail at retry_scale x caps.  Returns
+        (allowed, fallback)."""
+        enc, err, general, res, gi, gres, g = handle
         n = err.shape[0]
         allowed = np.zeros(n, bool)
-        fallback = err | general
+        fallback = err.copy()
+        if gres is not None:
+            allowed[gi], fallback[gi] = self._collect_general(g, enc, gi, gres)
         if res is None:
             return allowed, fallback
         t0 = time.perf_counter()

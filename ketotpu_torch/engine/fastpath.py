@@ -30,7 +30,9 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises):
 
 :func:`run_fast_packed` enqueues every level of a batch on the current
 stream with no host sync; the caller fetches verdicts and occupancy with
-one device-to-host copy (:meth:`Packed.fetch`).
+one device-to-host copy (:meth:`Packed.fetch`).  Its level loop,
+:func:`_level_loop`, also runs the algebra program's leaf sub-run
+(``engine/algebra.py``) from a leaf buffer in place of the roots.
 
 Queries, frontier columns and the found/over bits are int32 (skip/force
 bool); found/over are 0/1 int32 so the kernels can OR them atomically.
@@ -122,6 +124,14 @@ def _member(g: Tables, node, subj):
     """Does tuple (node, subject) exist?  ExistsRelationTuples equivalent."""
     _, found = hashtab.lookup(hashtab.subtables(g, "mt_"), node, subj)
     return found
+
+
+def _node_dirty(g: Tables, node):
+    """Did this node's subject-set edge list change since the base
+    snapshot?  The port has no delta overlay yet (every write re-projects
+    the store), so no row is ever dirty; the ``ov_dirty`` branch of the
+    JAX function waits for the overlay."""
+    return torch.zeros(node.shape, dtype=torch.bool, device=node.device)
 
 
 def _row_deg(g: Tables, node):
@@ -723,6 +733,21 @@ def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
     f, q_found, q_over, q_subj = ops.init_state(
         qp, frontier=sched[0][0], levels=levels, occ_out=occ[0:1]
     )
+    q_found, q_over = _level_loop(ops, g, f, q_found, q_over, q_subj, sched,
+                                  max_width=max_width, occ=occ)
+    ops.pack_verdicts(q_found, q_over, out=res.codes())
+    return res
+
+
+def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
+                q_subj: Tensor, sched, *, max_width: int, occ: Tensor):
+    """Every level of a BFS from the level-0 frontier ``f`` (the batch's
+    roots, or the algebra's leaf buffer), enqueued with no host sync.
+    ``occ[i + 1]`` receives the live items entering level ``i + 1`` (the
+    caller writes ``occ[0]``).  Returns (q_found, q_over)."""
+    ns_dim, rel_dim, _, _ = _dims(g)
+    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
+    levels = len(sched)
     for i, (_f, a) in enumerate(sched):
         last = i == levels - 1
         q_found, lv = ops.probe_level(g, f, q_found, q_subj, probe_only=last)
@@ -737,5 +762,4 @@ def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
             children, q_found, q_over, frontier=sched[i + 1][0], nsb=nsb,
             relb=relb, occ_out=occ[i + 1: i + 2],
         )
-    ops.pack_verdicts(q_found, q_over, out=res.codes())
-    return res
+    return q_found, q_over

@@ -1,15 +1,16 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``csrc/{probe,arena,children,pack}.cu`` (plus the shared
-headers ``common.cuh`` and ``scan.cuh``).  Each ``.cu`` compiles with
+The sources are ``csrc/{probe,arena,children,pack,algebra}.cu`` (plus the
+shared headers ``common.cuh`` and ``scan.cuh``).  Each ``.cu`` compiles with
 ``nvcc`` into its own shared library with a plain C interface, under
 ``build/ketotpu_torch/`` at the root of the checkout, named by a digest of
 its sources and flags so a stale build is never loaded.  The libraries are
-built on first use (all four ``nvcc`` processes run at once) and loaded
+built on first use (all ``nvcc`` processes run at once) and loaded
 with ``ctypes``; pointers and the stream travel as ``c_void_p``.
 
 The wrappers that launch the kernels live beside their plain PyTorch
-versions (``engine/fastpath.py``, ``engine/xutil.py``).  Each wrapper adds
+versions (``engine/fastpath.py``, ``engine/xutil.py``,
+``engine/algebra.py``).  Each wrapper adds
 one to its entry of :data:`LAUNCHES` where it launches, and nowhere else.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -28,7 +29,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-MODULES = ("probe", "arena", "children", "pack")
+MODULES = ("probe", "arena", "children", "pack", "algebra")
 HEADERS = ("common.cuh", "scan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +44,17 @@ LAUNCHES: Dict[str, int] = {
     "pack_scatter": 0,
     "init_state": 0,
     "pack_verdicts": 0,
+    "gen_classify": 0,
+    "gen_construct": 0,
+    "gen_visited": 0,
+    "gen_collect": 0,
+    "gen_up": 0,
+    "gen_pack": 0,
 }
+
+#: the largest visited set: its claim array fills the one block's shared
+#: memory (csrc/algebra.cu kVisitedSmemSlots)
+VISITED_SMEM_SLOTS = 32768
 
 
 def reset_launches() -> None:
@@ -141,6 +152,25 @@ class Items(ctypes.Structure):
     ]
 
 
+class Prog(ctypes.Structure):
+    _fields_ = [
+        ("p_kind", _P), ("p_a", _P), ("p_b", _P), ("p_child_ptr", _P),
+        ("p_child_idx", _P), ("p_child_dec", _P), ("p_child_neg", _P),
+        ("b_ptr", _P), ("b_rel", _P), ("b_probe", _P), ("prog_root", _P),
+        ("rel_err", _P), ("err_reach", _P), ("taint", _P),
+        ("n_prog", _I), ("n_child", _I), ("n_bptr", _I), ("n_brel", _I),
+    ]
+
+
+class GenState(ctypes.Structure):
+    _fields_ = [
+        ("tasks", _P), ("aux", _P), ("cnt", _P), ("vset", _P),
+        ("q_over", _P), ("q_dirty", _P), ("leaves", Items), ("leaf_subj", _P),
+        ("codes", _P), ("occ", _P),
+        ("total", _I), ("vs", _I), ("q", _I), ("depth", _I), ("n_sched", _I),
+    ]
+
+
 _SIGNATURES = {
     "probe": {
         "probe_level": [Graph, Items, _P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -159,6 +189,15 @@ _SIGNATURES = {
         "init_state": [_P, _I, _I, Items, _P, _P, _P, _P],
         "pack_verdicts": [_P, _P, _I, _P, _P],
     },
+    "algebra": {
+        "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _I, _P],
+        "gen_construct": [Graph, Prog, GenState, _I, _I, _I, _I, _P, _P, _P,
+                          _I, _P],
+        "gen_visited": [GenState, _I, _I, _P, _P],
+        "gen_collect": [GenState, _P, _P, _P, _P, _P, _P],
+        "gen_up": [GenState, _I, _I, _I, _I, _I, _P, _P, _P],
+        "gen_pack": [GenState, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -166,8 +205,8 @@ _lock = threading.Lock()
 
 
 def lib(module: str) -> ctypes.CDLL:
-    """The loaded library of one kernel module (all four are built on the
-    first call)."""
+    """The loaded library of one kernel module (all are built on the first
+    call)."""
     with _lock:
         if not _libs:
             build()
@@ -244,6 +283,7 @@ class DeviceTables(dict):
     does not rebuild it per launch.  Treat it as read-only once built."""
 
     _graph: Optional[Graph] = None
+    _prog: Optional[Prog] = None
 
 
 def graph(g: Dict[str, torch.Tensor]) -> Graph:
@@ -301,3 +341,80 @@ def items(cols, device=None) -> Items:
         d=c("d", torch.int32), skip=c("skip", torch.bool),
         force=c("force", torch.bool), n=n,
     )
+
+
+def prog(g: Dict[str, torch.Tensor]) -> Prog:
+    """The algebra kernels' view of the rewrite-program and routing tables
+    (validated; cached on a :class:`DeviceTables`)."""
+    cached = getattr(g, "_prog", None)
+    if cached is not None:
+        return cached
+    device = g["row_ptr"].device
+    ns_dim, rel_dim = g["f_direct_ok"].shape
+
+    def t(name, dtype, shape=None):
+        return ptr(require(g[name], dtype, name, shape=shape, device=device))
+
+    n_prog = g["p_kind"].shape[0]
+    n_child = g["p_child_idx"].shape[0]
+    n_brel = g["b_rel"].shape[0]
+    out = Prog(
+        p_kind=t("p_kind", torch.int32),
+        p_a=t("p_a", torch.int32, (n_prog,)),
+        p_b=t("p_b", torch.int32, (n_prog,)),
+        p_child_ptr=t("p_child_ptr", torch.int32, (n_prog + 1,)),
+        p_child_idx=t("p_child_idx", torch.int32),
+        p_child_dec=t("p_child_dec", torch.int32, (n_child,)),
+        p_child_neg=t("p_child_neg", torch.bool, (n_child,)),
+        b_ptr=t("b_ptr", torch.int32),
+        b_rel=t("b_rel", torch.int32),
+        b_probe=t("b_probe", torch.bool, (n_brel,)),
+        prog_root=t("prog_root", torch.int32, (ns_dim, rel_dim)),
+        rel_err=t("rel_err", torch.bool, (ns_dim, rel_dim)),
+        err_reach=t("err_reach", torch.bool, (ns_dim, rel_dim)),
+        taint=t("taint", torch.bool, (ns_dim, rel_dim)),
+        n_prog=n_prog, n_child=n_child, n_bptr=g["b_ptr"].shape[0],
+        n_brel=n_brel,
+    )
+    if isinstance(g, DeviceTables):
+        g._prog = out
+    return out
+
+
+def gen_state(st) -> GenState:
+    """The algebra kernels' view of an ``algebra.GenState`` (validated once;
+    the state's tensors are never reallocated, so the view is cached on
+    it)."""
+    cached = getattr(st, "_cview", None)
+    if cached is not None:
+        return cached
+    device = st.tasks.device
+    tot = st.tasks.shape[1]
+    vs = st.vset.shape[1]
+    b = st.leaves.qid.shape[0]
+    occ_off = -(-st.q // 4) * 4
+    n_occ = st.depth + 2 + st.n_sched
+    require(st.out, torch.uint8, "out", shape=(occ_off + 4 * n_occ,),
+            device=device)
+    out = GenState(
+        tasks=ptr(require(st.tasks, torch.int32, "tasks", device=device)),
+        aux=ptr(require(st.aux, torch.int32, "aux", shape=(st.aux.shape[0], tot),
+                        device=device)),
+        cnt=ptr(require(st.cnt, torch.int32, "cnt", shape=(3, tot),
+                        device=device)),
+        vset=ptr(require(st.vset, torch.int32, "vset", shape=(4, vs),
+                         device=device)),
+        q_over=ptr(require(st.q_over, torch.int32, "q_over", shape=(st.q,),
+                           device=device)),
+        q_dirty=ptr(require(st.q_dirty, torch.int32, "q_dirty", shape=(st.q,),
+                            device=device)),
+        leaves=items(st.leaves, device),
+        leaf_subj=ptr(require(st.leaf_subj, torch.int32, "leaf_subj",
+                              shape=(b,), device=device)),
+        codes=st.out.data_ptr(), occ=st.out.data_ptr() + occ_off,
+        total=tot, vs=vs, q=st.q, depth=st.depth, n_sched=st.n_sched,
+    )
+    if vs & (vs - 1):
+        raise ValueError(f"visited set of {vs} slots: not a power of two")
+    st._cview = out
+    return out

@@ -1,11 +1,12 @@
 """Port parity: ``ketotpu_torch.engine.device.DeviceCheckEngine`` (on the
 CPU, through the plain PyTorch versions) against the JAX package's
 ``DeviceCheckEngine`` with the unfused cascade and Leopard off — the
-configuration the port's first slice serves — and against the JAX oracle.
+configuration the port serves — and against the JAX oracle.
 
-Verdicts are exact on both sides (the BFS answers pure-OR rows, the rest
-go to the host oracle or the JAX algebra program), so they must agree bit
-for bit; an error row must raise the same typed error.
+Verdicts are exact on both sides (the BFS answers pure-OR rows, the
+algebra program AND/NOT rows, the host oracle what overflows both tiers'
+retries), so they must agree bit for bit; an error row must raise the
+same typed error.
 """
 
 import numpy as np
@@ -30,11 +31,14 @@ from ketotpu_torch.storage.memory import InMemoryTupleStore as TStore
 from ketotpu_torch.storage.namespaces import StaticNamespaceManager as TManager
 from ketotpu_torch.utils import synth as tsynth
 from torch_parity import (
+    ALGEBRA_BATCHES,
+    ALGEBRA_OPL,
     CAT_VIDEOS_QUERIES,
     FIXTURES,
     REWRITES_QUERIES,
     REWRITES_TUPLES,
     SMALL_SYNTH,
+    algebra_tuples,
     cat_videos_tuples,
     granted_checks,
     release_jax_caches,  # noqa: F401 - autouse fixture
@@ -80,7 +84,8 @@ def test_synth_batch_matches_jax_engine_and_oracle(synth):
     assert got == jeng.batch_check(jq)
     assert got == [oracle.check_is_member(q) for q in jq]
     assert any(got) and not all(got)
-    assert teng.fallbacks > 0  # the edit rows went to the oracle
+    # the edit rows ran the algebra program, none went to the oracle
+    assert teng.general_rows > 0 and teng.fallbacks == 0
     # shallower request depths (the JAX algebra program would compile anew
     # per depth, so these hold the port against the oracle alone)
     for depth in (3, 2):
@@ -112,6 +117,64 @@ def test_overflow_retry_then_oracle(synth):
     got = tiny.batch_check([TTuple.from_string(s) for s in rows])
     assert got == [oracle.check_is_member(JTuple.from_string(s)) for s in rows]
     assert tiny.retries > 0 and tiny.fallbacks > 0
+
+
+def test_general_rows_retry_at_boosted_caps(synth):
+    """A general skeleton far too small for the batch: the overflowed rows
+    re-run at retry_scale x caps and fit there; no row reaches the
+    oracle."""
+    jg, tg, _jeng, _teng = synth
+    rows = [str(t) for t in jsynth.synth_queries_mixed(jg, 40, seed=8,
+                                                       general_frac=1.0)]
+    rows += [s.replace("#view@", "#edit@") for s in granted_checks(jg.store, 24, 8)]
+    eng = TEngine(tg.store, tg.manager, gen_arena=64, device="cpu")
+    oracle = JOracle(jg.store, jg.manager)
+    got = eng.batch_check([TTuple.from_string(s) for s in rows])
+    assert got == [oracle.check_is_member(JTuple.from_string(s)) for s in rows]
+    assert eng.general_retries > 0 and eng.fallbacks == 0
+    assert any(got) and not all(got)
+
+
+def test_general_rows_over_after_retry_go_to_the_oracle(synth):
+    """One skeleton level at both tiers: every edit root exhausts the level
+    budget, retries, exhausts it again and is answered by the oracle."""
+    jg, tg, _jeng, _teng = synth
+    rows = [s.replace("#view@", "#edit@") for s in granted_checks(jg.store, 64, 9)]
+    eng = TEngine(tg.store, tg.manager, gen_levels=1, gen_levels_max=1,
+                  device="cpu")
+    oracle = JOracle(jg.store, jg.manager)
+    got = eng.batch_check([TTuple.from_string(s) for s in rows])
+    assert got == [oracle.check_is_member(JTuple.from_string(s)) for s in rows]
+    assert eng.general_retries == len(rows) == eng.fallbacks
+    assert any(got)
+
+
+def test_algebra_fixture_matches_the_oracle():
+    """The tier-2 fixture (AND, NOT chains, visited-set dedup, a tainted
+    recursion, a client error mid-traversal) through the port engine at
+    its default caps: verdicts equal the oracle's, the error row raises
+    its typed error."""
+    from ketotpu.storage import InMemoryTupleStore as JS
+
+    namespaces, errs = jparse(ALGEBRA_OPL)
+    assert not errs, errs
+    tns, terrs = tparse(ALGEBRA_OPL)
+    assert not terrs, terrs
+    js, ts = JS(), TStore()
+    js.write_relation_tuples(*[JTuple.from_string(s) for s in algebra_tuples()])
+    ts.write_relation_tuples(*[TTuple.from_string(s) for s in algebra_tuples()])
+    oracle = JOracle(js, JManager(namespaces))
+    teng = TEngine(ts, TManager(tns), device="cpu")
+    for name, batch in ALGEBRA_BATCHES.items():
+        if name == "error":
+            with pytest.raises(TKetoAPIError):
+                teng.batch_check([TTuple.from_string(s) for s in batch])
+            with pytest.raises(JKetoAPIError):
+                oracle.check_is_member(JTuple.from_string(batch[0]))
+            continue
+        want = [oracle.check_is_member(JTuple.from_string(s)) for s in batch]
+        assert teng.batch_check([TTuple.from_string(s) for s in batch]) == want
+    assert teng.general_rows > 0
 
 
 def _fixture_engines(case):

@@ -15,10 +15,15 @@ import pytest
 import torch
 
 import chip_smoke
+from ketotpu_torch import kernels
 from ketotpu_torch.engine import fastpath as fp
 from ketotpu_torch.engine import xutil
 from ketotpu_torch.engine.device import DeviceCheckEngine
-from ketotpu_torch.utils.synth import build_synth_columnar, synth_queries
+from ketotpu_torch.utils.synth import (
+    build_synth_columnar,
+    synth_queries,
+    synth_queries_mixed,
+)
 from torch_parity import SMALL_SYNTH
 
 pytestmark = pytest.mark.gpu
@@ -75,3 +80,74 @@ def test_engine_on_the_card_matches_the_oracle(engine):
     queries = synth_queries(g, 512, seed=1)
     got = eng.batch_check(queries)
     assert got == [eng.oracle.check_is_member(q) for q in queries]
+
+
+@pytest.mark.parametrize("graph,case", [
+    ("synth", "first-pass"), ("synth", "retry"), ("synth", "tiny-arena"),
+    ("synth", "one-level"), ("synth", "tiny-leaves"),
+    ("synth", "global-claims"), ("fixture", "first-pass"),
+    ("fixture", "retry"), ("fixture", "tiny-vcap"), ("fixture", "tiny-arena"),
+    ("fixture", "one-level"), ("fixture", "global-claims"),
+])
+def test_every_algebra_kernel_matches_its_plain_version(engine, graph, case):
+    """The tier-2 kernels step by step against their plain versions on the
+    same state (every tensor of it, tolerance 0), at the engine's shapes
+    and at shapes that force each capacity edge: arena overflow, visited
+    overflow, the level budget, leaf drop.  A visited set whose claims do
+    not fit the kernel's shared memory is refused."""
+    if graph == "synth":
+        g, eng = engine
+        rows = synth_queries_mixed(g, 700, seed=21, general_frac=0.6)
+    else:
+        eng, batches = chip_smoke.fixture_engine()
+        rows = [t for b in batches.values() for t in b]
+    enc, gi = eng.encode_general(rows)
+    boost = eng.retry_scale if case == "retry" else 1
+    qpack, (sizes, fast_b, fast_sched, vcap) = eng.pack_general(enc, gi, boost)
+    if case == "tiny-arena":
+        sizes = (64,) * len(sizes)
+    elif case == "tiny-vcap":
+        vcap = 8
+    elif case == "one-level":
+        sizes = sizes[:1]
+    elif case == "tiny-leaves":
+        fast_b = 256
+        fast_sched = fp.level_schedule(256, 512, 1024, eng.max_depth)
+    elif case == "global-claims":
+        vcap = 2 * kernels.VISITED_SMEM_SLOTS
+    sched = (tuple(sizes), fast_b, fast_sched, vcap)
+    rec = chip_smoke.Recorder()
+    tag = ("t", chip_smoke.gen_key(qpack, boost, sched))
+    if case == "global-claims":
+        with pytest.raises(ValueError, match="visited set"):
+            chip_smoke.check_general(eng.device_tables(), qpack, sched,
+                                     eng.max_width, rec, tag)
+        return
+    codes, _occ = chip_smoke.check_general(
+        eng.device_tables(), qpack, sched, eng.max_width, rec, tag)
+    assert all(len(rec.calls[k]) for k in chip_smoke.GEN_KERNELS)
+    assert all(e == 0 for e in rec.err.values())
+    if graph == "fixture" and case == "retry":
+        work = np.sum([chip_smoke.visited_counts(a[0], a[1])
+                       for _t, a, _k in rec.calls["gen_visited"]], axis=0)
+        assert work[1] and work[2], "keys must be inserted and seen"
+    if case in ("tiny-arena", "tiny-vcap", "one-level", "tiny-leaves"):
+        assert ((codes[: len(gi)] >> 2) & 1).any(), "the case must overflow"
+
+
+def test_engine_answers_general_rows_on_the_card(engine):
+    g, eng = engine
+    rows = synth_queries_mixed(g, 600, seed=2)
+    f0 = eng.fallbacks
+    got = eng.batch_check(rows)
+    assert got == [eng.oracle.check_is_member(q) for q in rows]
+    assert eng.general_rows > 0 and eng.fallbacks == f0
+
+
+def test_engine_refuses_a_visited_set_past_shared_memory(engine):
+    """The visited-set kernel keeps its claims in one block's shared
+    memory: an engine whose retry would need a larger set is refused when
+    it is built, not in the middle of a batch."""
+    g, _eng = engine
+    with pytest.raises(ValueError, match="visited set"):
+        DeviceCheckEngine(g.store, g.manager, vcap=kernels.VISITED_SMEM_SLOTS)

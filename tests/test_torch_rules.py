@@ -83,3 +83,26 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tfp.pack_verdicts(flags + 1, flags, out=out)
     assert out.tolist() == [1, 1, 1, 1]
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_general_program_on_cpu_launches_nothing():
+    """The tier-2 wrappers take their plain versions for CPU tensors: a
+    general batch through the engine on the CPU counts no launch."""
+    from ketotpu_torch.api.types import RelationTuple
+    from ketotpu_torch.opl.parser import parse
+    from ketotpu_torch.storage.memory import InMemoryTupleStore
+    from ketotpu_torch.storage.namespaces import StaticNamespaceManager
+    from torch_parity import ALGEBRA_BATCHES, ALGEBRA_OPL, algebra_tuples
+
+    namespaces, errs = parse(ALGEBRA_OPL)
+    assert not errs, errs
+    store = InMemoryTupleStore()
+    store.write_relation_tuples(
+        *[RelationTuple.from_string(s) for s in algebra_tuples()])
+    eng = tdevice.DeviceCheckEngine(store, StaticNamespaceManager(namespaces),
+                                    device="cpu")
+    kernels.reset_launches()
+    got = eng.batch_check(
+        [RelationTuple.from_string(s) for s in ALGEBRA_BATCHES["andnot"]])
+    assert any(got) and eng.general_rows > 0
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -164,3 +164,111 @@ def granted_checks(store, n: int, seed: int):
             out.extend(f"Doc:{d}#view@{v.subject.id}" for v in fv
                        if isinstance(v.subject, SubjectID))
     return out[:n]
+
+
+#: the tier-2 fixture: intersection and exclusion (the JAX engine tests'
+#: OPL_ANDNOT shapes), a NOT chain, a subject-set relation whose children
+#: are AND/NOT permits (they enter the visited set), a tainted folder
+#: recursion deeper than a few skeleton levels, and a subject set into an
+#: undeclared relation (a client error mid-traversal)
+ALGEBRA_OPL = """
+import { Namespace, SubjectSet, Context } from "@ory/keto-namespace-types"
+
+class User implements Namespace {}
+
+class Team implements Namespace {
+  related: {
+    members: User[]
+    suspended: User[]
+  }
+  permits = {
+    active: (ctx: Context): boolean =>
+      this.related.members.includes(ctx.subject) &&
+      !this.related.suspended.includes(ctx.subject),
+  }
+}
+
+class Folder implements Namespace {
+  related: {
+    parents: Folder[]
+    owners: User[]
+    banned: User[]
+  }
+  permits = {
+    manage: (ctx: Context): boolean =>
+      (this.related.owners.includes(ctx.subject) &&
+        !this.related.banned.includes(ctx.subject)) ||
+      this.related.parents.traverse((p) => p.permits.manage(ctx)),
+  }
+}
+
+class Doc implements Namespace {
+  related: {
+    editors: User[]
+    signers: User[]
+    banned: User[]
+    crew: (User | SubjectSet<Team, "members">)[]
+    viewers: (User | SubjectSet<Team, "members">)[]
+  }
+  permits = {
+    finalize: (ctx: Context): boolean =>
+      this.related.editors.includes(ctx.subject) &&
+      this.related.signers.includes(ctx.subject),
+    edit: (ctx: Context): boolean =>
+      this.related.editors.includes(ctx.subject) &&
+      !this.related.banned.includes(ctx.subject),
+    locked: (ctx: Context): boolean =>
+      !this.related.signers.includes(ctx.subject),
+    open: (ctx: Context): boolean => !this.permits.locked(ctx),
+    staff: (ctx: Context): boolean => this.related.crew.includes(ctx.subject),
+    seen: (ctx: Context): boolean => this.related.viewers.includes(ctx.subject),
+    c1: (ctx: Context): boolean =>
+      this.permits.c2(ctx) && this.related.signers.includes(ctx.subject),
+    c2: (ctx: Context): boolean =>
+      this.permits.seen(ctx) && this.related.signers.includes(ctx.subject),
+  }
+}
+"""
+
+
+def algebra_tuples():
+    out = [
+        "Doc:a#editors@alice", "Doc:a#signers@alice", "Doc:a#editors@bob",
+        "Doc:a#banned@bob", "Doc:b#signers@carol", "Doc:w#crew@dan",
+        "Doc:e#crew@Folder:f0#nosuch",
+    ]
+    for i in range(24):
+        out.append(f"Doc:w#crew@Team:t{i}#active")
+        out.append(f"Team:t{i}#members@u{i}")
+        out.append(f"Team:t{i}#members@u{i + 1}")
+        if i % 3 == 0:
+            out.append(f"Team:t{i}#suspended@u{i}")
+    for k in range(8):
+        out.append(f"Folder:f{k}#parents@Folder:f{k + 1}")
+    out += ["Folder:f8#owners@dave", "Folder:f5#owners@erin",
+            "Folder:f3#banned@erin", "Folder:f6#owners@frank"]
+    # a pure permit behind two nested ANDs: a leaf that is not trivial (it
+    # has a rewrite) on the last level of a six-level skeleton
+    out += ["Doc:a#viewers@Team:t1#members", "Doc:a#signers@u1"]
+    # two subject sets under one scope that share a member: the second
+    # visit of Team:t1#active is a key the visited set has already seen
+    out += ["Doc:v#crew@Doc:v1#crew", "Doc:v#crew@Doc:v2#crew",
+            "Doc:v1#crew@Team:t1#active", "Doc:v2#crew@Team:t1#active"]
+    return out
+
+
+#: query batches over the tier-2 fixture, each reaching one edge
+ALGEBRA_BATCHES = {
+    "andnot": [f"Doc:{d}#{r}@{u}" for d in "ab"
+               for r in ("finalize", "edit", "locked", "open")
+               for u in ("alice", "bob", "carol")],
+    "visited": [f"Doc:w#staff@u{j}" for j in (0, 1, 2, 5, 9, 25)]
+               + ["Doc:w#staff@dan"],
+    "error": ["Doc:e#staff@alice", "Doc:a#edit@alice"],
+    "depth": ["Folder:f0#manage@dave", "Folder:f7#manage@dave",
+              "Folder:f4#manage@erin", "Folder:f2#manage@frank",
+              "Doc:a#c1@u1", "Doc:a#c1@alice"],
+    "flood": [f"Doc:w#staff@u{j % 30}" for j in range(60)]
+             + ["Doc:a#edit@alice", "Doc:a#open@alice"],
+    "dedup": ["Doc:v#staff@u2", "Doc:v#staff@u3"],
+}
