@@ -5,9 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build the CUDA kernels (tier 1 and the tier-2 algebra) from
-   ``ketotpu_torch/csrc`` (one ``nvcc`` per source, all at once) into
-   ``build/ketotpu_torch/``;
+1. build the CUDA kernels (tier 0, tier 1, the tier-2 algebra and the
+   fused wave) from ``ketotpu_torch/csrc`` (one ``nvcc`` per source, all
+   at once) into ``build/ketotpu_torch/``;
 2. build the 10M-tuple synth graph, project and upload it, then hold every
    tier-1 kernel against its plain PyTorch version on the same CUDA
    tensors (tolerance 0), level by level, at every shape the engine
@@ -43,13 +43,32 @@ Phases, in order; any failure raises and exits non-zero:
    (``tests/torch_parity.py``) is dispatched step by step at the first
    pass's and the retry's visited-set sizes, and must insert keys and see
    keys already there;
-7. time every kernel per dispatch shape on each path's own calls
+7. path A, the membership deployment: a second engine over the same graph,
+   ``fused_dispatch`` on and Leopard on with ``max_pairs`` 2^25 (the 10M
+   graph's closure has about 19M element pairs); 16,384 seeded
+   ``Group:g#members@User`` checks (direct members, parents of nested
+   groups with a member of the child, random pairs) timed through
+   ``batch_check``, every verdict held against the oracle, every wave
+   replayed with its four kernels held against their plain versions and
+   its whole int32 output against the plain wave;
+8. path B: the mixed traffic of phase 6 through the fused wave with
+   Leopard on, its verdicts equal to phase 6's row for row, one
+   device-to-host copy per wave;
+9. path C: the membership traffic through the unfused cascade with
+   Leopard on, where the K6 probe launches on its own (once per chunk);
+10. path D: the deep-groups fixture (chains of 12 nested groups) at
+   ``max_depth`` 16, answered at tier 0, and at rest depth 10, where the
+   too-deep hits go to tier 1 in the same wave; plus one wave with
+   hand-set probe modes;
+11. time every kernel per dispatch shape on each path's own calls
    (CUDA-graph replay, so the time is the device's and not the host's
    enqueue; a K7 call runs back to back on clones of the state it found,
-   reset outside the timed span), its plain version and, where one
-   PyTorch call computes the same function, that call; print the kernel
-   JSON line, whose per-launch numbers are weighted by the timed runs'
-   launches at each shape.
+   reset outside the timed span; a K6 or wave kernel call runs back to
+   back on its own inputs, which it does not change), its plain version
+   and, where one PyTorch call computes the same function, that call;
+   time one whole wave per fused path on the card, with and without its
+   retry lanes; print the kernel JSON line, whose per-launch numbers are
+   weighted by the timed runs' launches at each shape.
 
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
@@ -64,6 +83,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from types import SimpleNamespace
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -105,7 +125,30 @@ GEN_KERNELS = {
     "gen_up": ("ketotpu_torch/csrc/algebra.cu", "ketotpu/engine/algebra.py:825"),
     "gen_pack": ("ketotpu_torch/csrc/algebra.cu", "ketotpu/engine/algebra.py:890"),
 }
-ALL_KERNELS = (*KERNELS, *GEN_KERNELS)
+#: tier 0 (K6) and the fused wave's own kernels (K8): CUDA source and the
+#: JAX function each replaces
+LEO_KERNELS = {
+    "leo_probe": ("ketotpu_torch/csrc/leopard.cu", "ketotpu/leopard/device.py:96"),
+}
+WAVE_KERNELS = {
+    "wave_tier0": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
+    "wave_lane": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
+    "wave_gen_lane": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
+    "wave_pack": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
+}
+ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS)
+#: the tier-1 kernels a fused wave launches (its results stay on the card:
+#: no pack_verdicts)
+WAVE_FAST_KERNELS = ("init_state", "probe_level", "arena_assign",
+                     "expand_children", "pack_scatter")
+
+LEO_MAX_PAIRS = 1 << 25  # leopard.max_pairs of the membership deployment
+MEMBERS_DIRECT, MEMBERS_HOP1, MEMBERS_RANDOM = 8192, 4096, 4096
+C_TAIL = 1808  # path C's short chunk: 10,000 mixed rows end in 1,808
+SEED_MEMBERS = 19
+DEEP_DEPTH, DEEP_CHAINS, DEEP_N = 12, 64, 2048  # bench.py _leopard_deep
+DEEP_MAX_DEPTH, DEEP_REST = 16, 10
+SEED_DEEP, SEED_MODES = 23, 29
 
 
 def log(msg: str) -> None:
@@ -132,7 +175,15 @@ def pairs():
     from ketotpu_torch.engine import fastpath as fp
     from ketotpu_torch.engine import xutil
 
+    from ketotpu_torch.engine import fused as fdx
+    from ketotpu_torch.leopard import device as leodev
+
     return {
+        "leo_probe": (leodev.probe, leodev._probe_plain),
+        "wave_tier0": (fdx.wave_tier0, fdx._wave_tier0_plain),
+        "wave_lane": (fdx.wave_lane, fdx._wave_lane_plain),
+        "wave_gen_lane": (fdx.wave_gen_lane, fdx._wave_gen_lane_plain),
+        "wave_pack": (fdx.wave_pack, fdx._wave_pack_plain),
         "init_state": (fp.init_state, fp._init_state_plain),
         "probe_level": (fp.probe_level, fp._probe_level_plain),
         "arena_assign": (xutil.arena_assign, xutil._arena_assign_plain),
@@ -223,6 +274,20 @@ class Recorder:
             "gen_classify", "gen_construct", "gen_visited", "gen_collect",
             "gen_up", "gen_pack", "arena_assign")), fast)
 
+    def wave_ops(self):
+        """A fused wave's steps: its four own kernels through :meth:`run`,
+        the tier-1 and tier-2 kernels it runs as the engine runs them."""
+        from ketotpu_torch.engine import algebra as alg
+        from ketotpu_torch.engine import fastpath as fp
+        from ketotpu_torch.engine import fused as fdx
+
+        def step(name):
+            return lambda *a, **k: self.run(name, *a, **k)
+
+        return fdx.WaveOps(step("wave_tier0"), step("wave_lane"),
+                           step("wave_gen_lane"), step("wave_pack"), fp._OPS,
+                           alg._OPS)
+
     def shapes(self, dataset):
         """The dispatch shapes this recorder held ``dataset`` at."""
         return {tag[1] for calls in self.calls.values()
@@ -295,6 +360,19 @@ def _level_live(st, level: int, col: str = "qid") -> int:
 
 
 def shape_name(shape) -> str:
+    if shape[0] == "wave":
+        _, q, fast, _retry, lanes, gen, gen_retry, leo = shape
+        parts = [f"wave/Q{q}", f"F{len(fast)}" if fast else "noF",
+                 f"lanes{lanes}"]
+        for name, gs in (("G", gen), ("GR", gen_retry)):
+            if gs is not None:
+                sizes, fast_b, fsched, vcap = gs
+                parts.append(f"{name}:D{len(sizes)}/T{q + sum(sizes)}/B{fast_b}/"
+                             f"S{len(fsched)}/V{vcap}")
+        parts.append("leo" if leo else "noleo")
+        return "/".join(parts)
+    if shape[0] == "leo":
+        return f"leo/Q{shape[1]}/cap{shape[2]}"
     if shape[0] == "gen":
         _, q, boost, (sizes, fast_b, fast_sched, vcap) = shape
         return (f"general/Q{q}/D{len(sizes)}/T{q + sum(sizes)}/B{fast_b}/"
@@ -508,7 +586,273 @@ def visited_counts(st, level: int):
     return keys, keys - seen - pend, seen, pend
 
 
-# -- phase 7: timing ------------------------------------------------------------
+# -- phases 7-10: tier 0 and the fused wave -------------------------------------
+
+
+def wave_key(plan):
+    return ("wave", *plan.shape())
+
+
+def check_wave(plan, rec: Recorder, tag, qpack=None, kwargs=None):
+    """One fused wave with its four own kernels held against their plain
+    versions call by call (the tier-1 and tier-2 kernels inside run as the
+    engine runs them), then the whole int32 output against the plain
+    wave's (tolerance 0).  Returns the output on the host."""
+    from ketotpu_torch.engine import fused as fdx
+
+    qpack = plan.qpack if qpack is None else qpack
+    kwargs = plan.kwargs if kwargs is None else kwargs
+    rec.tag = tag
+    rec.dispatches[tag] += 1
+    out = fdx.run_wave(rec.wave_ops(), plan.tables, qpack, **kwargs)
+    want = fdx.run_fused_wave_plain(plan.tables, qpack, **kwargs)
+    if out.shape != want.shape or not torch.equal(out, want):
+        bad = (out != want).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f"{shape_name(tag[1])}: wave != plain wave at {bad}")
+    return out.cpu().numpy()
+
+
+def decode_wave(plan, out):
+    """(allowed, fallback) of one wave's rows, as the engine decodes them."""
+    n, err, general = plan.n, plan.err, plan.general
+    rows = out[:n]
+    gcode = rows & 3
+    found, fast_fb = (rows >> 4) & 1 == 1, (rows >> 5) & 1 == 1
+    leo_ans, leo_allow = (rows >> 6) & 1 == 1, (rows >> 7) & 1 == 1
+    allowed = np.zeros(n, bool)
+    fallback = err.copy()
+    allowed[general] = (gcode == 1)[general]
+    fallback[general] |= ((((rows >> 2) | (rows >> 3)) & 1 == 1)
+                          | (gcode == 3))[general]
+    fmask = ~(err | general)
+    allowed[fmask] = found[fmask]
+    if plan.has_leo:
+        allowed[leo_ans] = leo_allow[leo_ans]
+    return allowed, fallback | fast_fb
+
+
+def replay_waves(engine, queries, rec: Recorder, dataset: str, rest_depth=0):
+    """Every chunk of ``queries`` as the engine's wave, held step by step
+    (:func:`check_wave`).  Returns per chunk (plan, output, allowed,
+    fallback)."""
+    out = []
+    mb = engine.max_batch
+    for lo in range(0, len(queries), mb):
+        plan = engine.plan_wave(queries[lo: lo + mb], rest_depth)
+        res = check_wave(plan, rec, (dataset, wave_key(plan)))
+        out.append((plan, res, *decode_wave(plan, res)))
+    return out
+
+
+def hold_timed_shapes(engine, queries, rec: Recorder, dataset, shapes,
+                      rest_depth=0):
+    """Replay, on a chunk of the same Q, any wave shape the timed run
+    dispatched that the replay did not hold (the adaptive tier-1 schedule
+    may move between them)."""
+    held = rec.shapes(dataset)
+    for key in shapes:
+        if key in held:
+            continue
+        _, q, fast, retry, lanes, gen, gen_retry, _leo = key
+        for lo in range(0, len(queries), engine.max_batch):
+            plan = engine.plan_wave(queries[lo: lo + engine.max_batch],
+                                    rest_depth)
+            if plan.qpack.shape[1] == q:
+                kw = dict(plan.kwargs, fast_sched=fast, retry_sched=retry,
+                          retry_lanes=lanes, gen=gen, gen_retry=gen_retry)
+                check_wave(plan, rec, (dataset, key), kwargs=kw)
+                break
+        else:
+            raise AssertionError(f"no chunk of Q {q} to hold {shape_name(key)}")
+
+
+def wave_launches(shapes, names=WAVE_KERNELS):
+    """Per wave kernel, per wave shape: the launches a run of ``shapes``
+    (Counter of wave keys) makes: one tier0 and one pack per wave, one lane
+    per tier-1 pass, two general lanes with a general retry."""
+    out = {k: {} for k in names}
+    for key, c in shapes.items():
+        _, _q, fast, _retry, lanes, gen, gen_retry, _leo = key
+        per = {"wave_tier0": 1, "wave_pack": 1,
+               "wave_lane": (1 + lanes) if fast else 0,
+               "wave_gen_lane": 2 if (gen is not None and gen_retry is not None)
+               else 0}
+        for k in names:
+            if per[k]:
+                out[k][key] = per[k] * c
+    return out
+
+
+def membership_queries(graph, seed: int, n_direct=MEMBERS_DIRECT,
+                       n_hop1=MEMBERS_HOP1, n_random=MEMBERS_RANDOM):
+    """Group:g#members@User checks on the synth graph: ``n_direct`` live
+    direct-member tuples (allowed, hop 0), ``n_hop1`` parents g(i-1) of a
+    nested g(i) with a member of g(i) (allowed, hop 1), and ``n_random``
+    uniform random (group, user) pairs; shuffled with ``seed``."""
+    from ketotpu_torch.api.types import RelationTuple, SubjectID
+
+    rng = np.random.default_rng(seed)
+    cols, alive, _tail, _head = graph.store.export_columns()
+    v = graph.store.vocab
+    grp = np.asarray(alive, bool) & (cols["ns"] == v.namespaces.lookup("Group")) & (
+        cols["rel"] == v.relations.lookup("members"))
+    direct = np.flatnonzero(grp & (cols["is_set"] == 0))
+    nested = np.flatnonzero(grp & (cols["is_set"] == 1))
+    objs, subs = v.objects.strings(), v.subjects.strings()
+
+    def row(o, s):
+        return RelationTuple("Group", objs[o], "members", SubjectID(subs[s][3:]))
+
+    out = [row(cols["obj"][i], cols["subj"][i])
+           for i in rng.choice(direct, n_direct, replace=False)]
+    # members of each group: direct rows sorted by group
+    d_obj, d_subj = cols["obj"][direct], cols["subj"][direct]
+    order = np.argsort(d_obj, kind="stable")
+    d_obj, d_subj = d_obj[order], d_subj[order]
+    for i in rng.choice(nested, n_hop1):
+        child = cols["s_obj"][i]
+        lo, hi = np.searchsorted(d_obj, [child, child + 1])
+        out.append(row(cols["obj"][i], d_subj[lo + rng.integers(hi - lo)]))
+    groups = np.unique(d_obj)
+    users = np.unique(d_subj)
+    out += [row(o, s) for o, s in zip(rng.choice(groups, n_random),
+                                      rng.choice(users, n_random))]
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def leo_replay(engine, chunk, rec: Recorder, tag):
+    """The unfused path's K6 launch for one chunk, held against its plain
+    version: the same keys ``DeviceCheckEngine._leopard_answers`` builds."""
+    from ketotpu_torch.engine.device import _bucket
+    from ketotpu_torch.leopard import device as leodev
+
+    _g, enc, _err, _general, state = engine._prepare(chunk, 0)
+    nodes, _hi = state.index.node_ids_np(enc[0], enc[1], enc[2])
+    q_subj = enc[3]
+    keys = np.where((nodes >= 0) & (q_subj >= 0),
+                    nodes.astype(np.int64) << 32 | q_subj.astype(np.int64), -1)
+    q_set, q_elt = leodev.split_keys(keys, _bucket(len(chunk)))
+    p = state.pairs
+    dev = p["sets"].device
+    rec.tag = tag
+    rec.dispatches[tag] += 1
+    hit, hop = rec.run("leo_probe", p["sets"], p["elts"], p["hops"],
+                       torch.from_numpy(q_set).to(dev),
+                       torch.from_numpy(q_elt).to(dev))
+    return hit.cpu().numpy()[: len(chunk)], hop.cpu().numpy()[: len(chunk)]
+
+
+def search_bytes(sets, elts, q_set, q_elt, rows=None) -> int:
+    """Bytes the K6 searches of ``rows`` (all when None) must read: every
+    distinct pair slot their steps visit (set and element words), the hop
+    word of each hit, and each query's two key words."""
+    from ketotpu_torch.leopard import device as leodev
+
+    if rows is not None:
+        q_set, q_elt = q_set[rows], q_elt[rows]
+    if not q_set.numel():
+        return 0
+    cap = sets.shape[0]
+    lo = torch.zeros_like(q_set)
+    hi = torch.full_like(q_set, cap)
+    seen = []
+    for _ in range(leodev.probe_steps(cap)):
+        mid = (lo + hi) >> 1
+        mc = mid.clamp(max=cap - 1).long()
+        seen.append(mc)
+        less = (sets[mc] < q_set) | ((sets[mc] == q_set) & (elts[mc] < q_elt))
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    idx = lo.clamp(0, cap - 1).long()
+    slots = int(torch.unique(torch.cat(seen + [idx])).numel())
+    hits = int(((sets[idx] == q_set) & (elts[idx] == q_elt)).sum())
+    return 8 * slots + 4 * hits + 8 * q_set.numel()
+
+
+_PACKED = {}
+
+
+def library_probe(sets, elts, hops, q_set, q_elt):
+    """K6 as PyTorch calls compute it: ``torch.searchsorted`` over the
+    packed int64 (set << 32 | element) keys, the match test and the hop
+    gather.  The packed column is built once per pair column, outside the
+    timed call."""
+    key = sets.data_ptr()
+    if key not in _PACKED:
+        _PACKED[key] = (sets.long() << 32) | elts.long()
+    packed = _PACKED[key]
+    q = (q_set.long() << 32) | q_elt.long()
+    pos = torch.searchsorted(packed, q).clamp_(max=packed.numel() - 1)
+    hit = packed[pos] == q
+    return hit, torch.where(hit, hops[pos], 0)
+
+
+def deep_engine():
+    """The deep nested-group fixture (bench.py's leopard deep check):
+    ``DEEP_CHAINS`` chains of ``DEEP_DEPTH`` groups, the fused engine at
+    ``max_depth`` ``DEEP_MAX_DEPTH``, and ``DEEP_N`` seeded root checks."""
+    from ketotpu_torch.engine.device import DeviceCheckEngine
+    from ketotpu_torch.utils.synth import build_deep_groups, deep_queries
+
+    deep = build_deep_groups(depth=DEEP_DEPTH, n_chains=DEEP_CHAINS,
+                             seed=SEED_DEEP)
+    eng = DeviceCheckEngine(deep.store, deep.manager, max_depth=DEEP_MAX_DEPTH,
+                            fused_dispatch=True)
+    return eng, deep_queries(deep, DEEP_N, depth=DEEP_DEPTH, seed=SEED_DEEP + 1)
+
+
+def timed(engine, queries, rest_depth=0, repeats=2):
+    """One warm ``batch_check`` with every launch count and the engine's
+    counters set to 0 just before and read just after, then ``repeats``
+    more timed runs.  Returns (verdicts, seconds, launches, counter deltas,
+    wave shapes, host ms per phase, the repeats' seconds)."""
+    from ketotpu_torch import kernels
+
+    names = ("leopard_answered", "leopard_hits", "retries", "fallbacks",
+             "fused_waves", "fused_d2h_fetches", "general_rows",
+             "general_retries")
+    before = {k: getattr(engine, k) for k in names}
+    tiers0 = dict(engine.fused_tier_rows)
+    engine.phase_seconds.clear()
+    engine.wave_shapes.clear()
+    engine.dispatch_shapes.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.batch_check(queries, rest_depth)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    counts = {k: getattr(engine, k) - before[k] for k in names}
+    counts["tier_rows"] = {k: v - tiers0[k] for k, v in engine.fused_tier_rows.items()}
+    shapes = Counter({("wave", *k): c for k, c in engine.wave_shapes.items()})
+    phases = {k: round(v * 1e3, 3) for k, v in engine.phase_seconds.items()}
+    more = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        engine.batch_check(queries, rest_depth)
+        torch.cuda.synchronize()
+        more.append(time.perf_counter() - t1)
+    return out, dt, launches, counts, shapes, phases, more
+
+
+def require_launched(launches, names, path):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {path}: {missing}")
+
+
+def require_wave_launches(launches, shapes, path):
+    """Each wave kernel's launches in a timed run equal what its wave
+    shapes make."""
+    want = wave_launches(shapes)
+    for k in WAVE_KERNELS:
+        if sum(want[k].values()) != launches[k]:
+            raise AssertionError(f"{path}: {k} launched {launches[k]} times, "
+                                 f"{sum(want[k].values())} by wave shape")
+    return want
+
+
+# -- phase 11: timing -----------------------------------------------------------
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -652,6 +996,40 @@ def kernel_bytes(name, args, kw, g) -> int:
     if name == "pack_verdicts":
         nq = args[0].shape[0]
         return 2 * 4 * nq + nq
+    if name == "leo_probe":
+        sets, elts, _hops, q_set, q_elt = args
+        return search_bytes(sets, elts, q_set, q_elt) + 8 * q_set.shape[0]
+    if name == "wave_tier0":
+        from ketotpu_torch.leopard.closure import LM_HIT_ONLY, LM_PROBE
+
+        qp, leo = args
+        q = qp.shape[1]
+        b = 4 * q + 4 + 4 * q  # probe modes, the rest depth; tier-0 bits out
+        if leo is not None:
+            rows = ((qp[7] == LM_PROBE) | (qp[7] == LM_HIT_ONLY)).nonzero().flatten()
+            b += search_bytes(leo[0], leo[1], qp[8], qp[9], rows)
+        if kw["fast"]:
+            b += 4 * q + 4 * q  # the fast-eligible row in, tier 1's row out
+        return b
+    if name == "wave_lane":
+        act, _pf, _po, found, retried = args
+        q = act.shape[0]
+        b = 3 * 4 * q + 3 * 4 * q  # act, found and over bits in; 3 masks out
+        b += 4 * q * ((found is not None) + (retried is not None))
+        return b
+    if name == "wave_gen_lane":
+        q = args[0].shape[0]
+        if len(args) < 3 or args[2] is None:
+            return q + 4 * q + 4 * q  # codes, general row in; retry row out
+        return q + q + 4 * q + 4 * q  # both codes, the retry row; bits out
+    if name == "wave_pack":
+        leo, found, _fb, _rt, gcodes, gbits, focc, gocc = args
+        q = leo.shape[0]
+        nf = 0 if focc is None else focc.shape[0]
+        ng = 0 if gocc is None else gocc.shape[0]
+        b = 4 * q + (12 * q if found is not None else 0)
+        b += 4 * q if gbits is not None else (q if gcodes is not None else 0)
+        return b + 4 * (nf + ng) + 4 * (q + nf + ng)
     st = args[state_index(args)]
     t = st.tasks
     if name == "gen_classify":
@@ -663,7 +1041,7 @@ def kernel_bytes(name, args, kw, g) -> int:
             # row is gathered per live root below); the twelve columns of a
             # root written, then the eighteen classification writes, two of
             # them (kind, prog) the same columns
-            live = int((qp[5] != 0).sum())
+            live = int((kw["act"] != 0).sum())
             b = n * 4 * (5 + 12 + 18 - 2)
         else:
             # kind, ns, obj, rel, d, skip, force, prog, qid in; eight task
@@ -724,7 +1102,41 @@ def kernel_bytes(name, args, kw, g) -> int:
 #: one PyTorch call that computes the same function, where there is one
 LIBRARY = {
     "arena_assign": lambda args, kw: torch.cumsum(args[0], 0, dtype=torch.int32),
+    "leo_probe": lambda args, kw: library_probe(*args),
 }
+#: kernels timed as a graph of back-to-back calls (they leave their inputs
+#: as they found them)
+CALLS_TIMED = (*LEO_KERNELS, *WAVE_KERNELS)
+
+
+def calls_ms(fn):
+    """Times of one ``fn()`` that leaves its inputs as they were: one CUDA
+    graph runs it ``STATE_COPIES`` times back to back, replayed
+    ``STATE_ROUNDS`` times with the card held busy while the host submits
+    each replay.  Returns (device ms per call: the median of the replays,
+    their spread max - min, host ms per eager call, device time
+    included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: allocator pools and lazily built constants
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(STATE_COPIES):
+            fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    per = []
+    for _ in range(STATE_ROUNDS):
+        torch.cuda._sleep(HOLD_CYCLES)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        per.append(e0.elapsed_time(e1) / STATE_COPIES)
+    return float(np.median(per)), max(per) - min(per), host_ms(fn)
 
 
 def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS):
@@ -753,8 +1165,15 @@ def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS):
                 def p(args=args, kw=kw):
                     return plain(*args, **kw)
 
-                p0, k0, k1, p1 = device_ms(p), device_ms(k), device_ms(k), device_ms(p)
-                r["host_ms"].append(host_ms(k))
+                if name in CALLS_TIMED:
+                    (p0, _, _), (k0, s0, h0), (k1, s1, _), (p1, _, _) = (
+                        calls_ms(p), calls_ms(k), calls_ms(k), calls_ms(p))
+                    r["host_ms"].append(h0)
+                    r["spread_ms"].append(max(s0, s1))
+                else:
+                    p0, k0, k1, p1 = (device_ms(p), device_ms(k), device_ms(k),
+                                      device_ms(p))
+                    r["host_ms"].append(host_ms(k))
             else:
                 def on(fn, args=args, kw=kw, i=i):
                     return lambda st: fn(*args[:i], st, *args[i + 1:], **kw)
@@ -846,6 +1265,224 @@ def http_check(base: str, route: str, t, method: str):
         return e.code, json.loads(e.read())
 
 
+def fused_paths(graph, rec: Recorder, mixed_q, mout, engine):
+    """Phases 7-10: the fused engine with Leopard on over the same graph
+    (paths A, B, C) and the deep-groups fixture (path D).  ``mixed_q`` and
+    ``mout`` are the mixed traffic and its unfused verdicts (phase 6),
+    ``engine`` the engine whose oracle judges them.  Returns what the
+    timing phase reads."""
+    from ketotpu_torch.engine.device import DeviceCheckEngine
+    from ketotpu_torch.engine.oracle import CheckEngine
+
+    # -- 7. path A: membership checks, the fused wave, Leopard on --------------
+    t0 = time.perf_counter()
+    leng = DeviceCheckEngine(graph.store, graph.manager, fused_dispatch=True,
+                             fused_retry_lanes=1,
+                             leopard={"max_pairs": LEO_MAX_PAIRS})
+    lg = leng.device_tables()
+    state = leng.leopard_index()
+    if state is None or state.pairs is None:
+        raise AssertionError("the closure index was not built")
+    idx = state.index
+    pair_bytes = sum(t.numel() * t.element_size() for t in state.pairs.values())
+    log(f"[7] fused engine, Leopard max_pairs {LEO_MAX_PAIRS}: projection "
+        f"{leng.projection_build_s:.2f} s, upload {leng.projection_upload_s:.2f} "
+        f"s; closure index built in {idx.build_s:.2f} s on the host: "
+        f"{len(idx.elt_packed)} element pairs, {len(idx.set_src)} set pairs, "
+        f"{idx.n_nodes} nodes, {int(idx.tainted.sum())} tainted; pair columns "
+        f"on the card {pair_bytes} bytes ({state.pairs['sets'].shape[0]} slots "
+        f"x 3 int32), {time.perf_counter() - t0:.1f} s in all")
+    memb = membership_queries(graph, SEED_MEMBERS, MEMBERS_DIRECT, MEMBERS_HOP1,
+                              MEMBERS_RANDOM)
+    t0 = time.perf_counter()
+    oracle = CheckEngine(graph.store, graph.manager)
+    m_want = np.array([oracle.check_is_member(q) for q in memb])
+    log(f"[7] membership traffic: {len(memb)} Group#members checks "
+        f"({MEMBERS_DIRECT} direct members, {MEMBERS_HOP1} parent-of-nested, "
+        f"{MEMBERS_RANDOM} random); the oracle allows {int(m_want.sum())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    leng.batch_check(memb)  # warm
+    a_out, a_dt, a_launch, a_cnt, a_shapes, a_phases, a_more = timed(leng, memb)
+    a_out = np.asarray(a_out)
+    t0 = time.perf_counter()
+    a_replay = replay_waves(leng, memb, rec, "fused-members")
+    hold_timed_shapes(leng, memb, rec, "fused-members", a_shapes)
+    a_active = sum(int((((out[:pl.n] >> 6) & 1) == 0)[~(pl.err | pl.general)].sum())
+                   for pl, out, _a, _f in a_replay)
+    log(f"[7] timed membership batch_check (fused): {len(memb)} checks in "
+        f"{a_dt:.4f} s = {len(memb) / a_dt:.0f} checks/s (repeats: "
+        f"{', '.join(f'{len(memb) / x:.0f}' for x in a_more)} checks/s); "
+        f"allowed {int(a_out.sum())}; leopard answered "
+        f"{a_cnt['leopard_answered']}, hits {a_cnt['leopard_hits']}; tier-1 "
+        f"active rows {a_active}; retries {a_cnt['retries']}, oracle fallbacks "
+        f"{a_cnt['fallbacks']}; waves {a_cnt['fused_waves']}, device-to-host "
+        f"copies {a_cnt['fused_d2h_fetches']}; tier rows {a_cnt['tier_rows']}")
+    log(f"[7] launches in the timed membership run: {a_launch}")
+    log(f"[7] waves: { {shape_name(k): v for k, v in a_shapes.items()} }")
+    log(f"[7] host ms per phase of the timed membership run: {a_phases}")
+    if (a_out != m_want).any():
+        bad = np.flatnonzero(a_out != m_want)[:4]
+        raise AssertionError(f"membership verdicts != oracle at {bad}")
+    if a_cnt["leopard_answered"] != len(memb) or a_cnt["fallbacks"] or a_active:
+        raise AssertionError("the membership path left rows to tiers 1-2 or "
+                             "the oracle")
+    a_allowed = np.concatenate([a for _p, _o, a, _f in a_replay])
+    if (a_allowed != a_out).any():
+        raise AssertionError("membership batch_check != the wave replay")
+    require_launched(a_launch, ("wave_tier0", "wave_lane", "wave_pack",
+                                *WAVE_FAST_KERNELS), "the membership path")
+    a_by_shape = require_wave_launches(a_launch, a_shapes, "membership path")
+    log(f"[7] membership path: all {len(memb)} verdicts equal the oracle's and "
+        f"the step-by-step wave replay (every wave output == plain wave, "
+        f"tolerance 0); wave launches equal the replay's per wave shape "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 8. path B: the reference mixed traffic through the fused wave --------
+    leng.batch_check(mixed_q)
+    leng.batch_check(mixed_q)  # warm twice: the general shapes freeze
+    b_out, b_dt, b_launch, b_cnt, b_shapes, b_phases, b_more = timed(leng, mixed_q)
+    t0 = time.perf_counter()
+    b_replay = replay_waves(leng, mixed_q, rec, "fused-mixed")
+    hold_timed_shapes(leng, mixed_q, rec, "fused-mixed", b_shapes)
+    n_chunks = -(-MIXED_N // leng.max_batch)
+    log(f"[8] timed mixed batch_check (fused, Leopard on): {MIXED_N} checks in "
+        f"{b_dt:.4f} s = {MIXED_N / b_dt:.0f} checks/s (repeats: "
+        f"{', '.join(f'{MIXED_N / x:.0f}' for x in b_more)} checks/s); allowed "
+        f"{sum(b_out)}; leopard answered {b_cnt['leopard_answered']}; general "
+        f"rows {b_cnt['general_rows']}, general retries "
+        f"{b_cnt['general_retries']}, all retries {b_cnt['retries']}, oracle "
+        f"fallbacks {b_cnt['fallbacks']}; waves {b_cnt['fused_waves']}, "
+        f"device-to-host copies {b_cnt['fused_d2h_fetches']}; tier rows "
+        f"{b_cnt['tier_rows']}")
+    log(f"[8] launches in the timed fused mixed run: {b_launch}")
+    log(f"[8] waves: { {shape_name(k): v for k, v in b_shapes.items()} }")
+    log(f"[8] host ms per phase of the timed fused mixed run: {b_phases}")
+    if b_out != mout:
+        bad = [i for i, (x, y) in enumerate(zip(b_out, mout)) if x != y][:4]
+        raise AssertionError(f"fused mixed verdicts != unfused at rows {bad}")
+    if not (b_cnt["fused_waves"] == b_cnt["fused_d2h_fetches"] == n_chunks):
+        raise AssertionError("the fused mixed run did not fetch once per wave")
+    b_allowed = np.concatenate([a for _p, _o, a, _f in b_replay])
+    b_fb = np.concatenate([f for _p, _o, _a, f in b_replay])
+    if (b_allowed[~b_fb] != np.asarray(b_out)[~b_fb]).any():
+        raise AssertionError("fused mixed batch_check != the wave replay")
+    require_launched(b_launch, (*WAVE_KERNELS, *WAVE_FAST_KERNELS,
+                                *GEN_KERNELS), "the fused mixed path")
+    b_by_shape = require_wave_launches(b_launch, b_shapes, "fused mixed path")
+    for i in np.random.default_rng(SEED_SAMPLE + 1).choice(
+            MIXED_N, ORACLE_SAMPLE, replace=False):
+        if b_out[i] != engine.oracle.check_is_member(mixed_q[i]):
+            raise AssertionError(f"{mixed_q[i]}: fused verdict != oracle")
+    log(f"[8] fused mixed path: verdicts equal the unfused mixed run's row for "
+        f"row, the wave replay's, and the oracle on {ORACLE_SAMPLE} sampled "
+        f"rows; one device-to-host copy per wave ({n_chunks} waves) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 9. path C: the unfused cascade with Leopard on (K6 on its own) -------
+    # the membership checks and a short tail (C_TAIL rows, the size of the
+    # mixed traffic's last chunk): every chunk, whatever its size, probes
+    # on the card
+    c_rows = memb + memb[:C_TAIL]
+    c_want = np.concatenate([a_out, a_out[:C_TAIL]])
+    leng.fused_dispatch = False
+    leng.batch_check(c_rows)  # warm
+    c_out, c_dt, c_launch, c_cnt, _c_shapes, c_phases, c_more = timed(leng, c_rows)
+    leng.fused_dispatch = True
+    t0 = time.perf_counter()
+    c_shapes = Counter()
+    for lo in range(0, len(c_rows), leng.max_batch):
+        chunk = c_rows[lo: lo + leng.max_batch]
+        key = ("leo", len(chunk), state.pairs["sets"].shape[0])
+        c_shapes[key] += 1
+        hit, _hop = leo_replay(leng, chunk, rec, ("unfused-members", key))
+        if (hit.astype(bool) != c_want[lo: lo + len(chunk)]).any():
+            raise AssertionError("K6 hits != the membership verdicts")
+    log(f"[9] timed membership batch_check (unfused, Leopard on): {len(c_rows)} "
+        f"checks in {c_dt:.4f} s = {len(c_rows) / c_dt:.0f} checks/s (repeats: "
+        f"{', '.join(f'{len(c_rows) / x:.0f}' for x in c_more)} checks/s); "
+        f"leopard answered {c_cnt['leopard_answered']}, fallbacks "
+        f"{c_cnt['fallbacks']}; launches {c_launch}; host ms per phase "
+        f"{c_phases}")
+    if list(c_out) != list(c_want):
+        raise AssertionError("unfused membership verdicts != fused ones")
+    c_chunks = -(-len(c_rows) // leng.max_batch)
+    if c_cnt["leopard_answered"] != len(c_rows) or c_cnt["fallbacks"]:
+        raise AssertionError(f"path C: tier 0 answered "
+                             f"{c_cnt['leopard_answered']} of {len(c_rows)}")
+    if c_launch["leo_probe"] != c_chunks or sum(c_shapes.values()) != c_chunks:
+        raise AssertionError(f"leo_probe launched {c_launch['leo_probe']} "
+                             f"times for {c_chunks} chunks")
+    log(f"[9] unfused path: verdicts equal path A's; K6 launched once per "
+        f"chunk, its hits (kernel == plain) equal to the verdicts (every row "
+        f"is a pair within the depth budget or a miss) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 10. path D: the deep-groups fixture -----------------------------------
+    t0 = time.perf_counter()
+    deng, dq = deep_engine()
+    doracle = CheckEngine(deng.store, deng.namespace_manager,
+                          max_depth=DEEP_MAX_DEPTH)
+    d_stats = {}
+    for rest in (0, DEEP_REST):
+        want = np.array([doracle.check_is_member(q, rest) for q in dq])
+        deng.batch_check(dq, rest)  # warm
+        d_out, d_dt, d_launch, d_cnt, d_shapes, _ph, _m = timed(deng, dq, rest, 0)
+        d_out = np.asarray(d_out)
+        tag = f"deep-{rest}"
+        d_replay = replay_waves(deng, dq, rec, tag, rest)
+        hold_timed_shapes(deng, dq, rec, tag, d_shapes, rest)
+        active = sum(int((((o[:pl.n] >> 6) & 1) == 0)[~(pl.err | pl.general)].sum())
+                     for pl, o, _a, _f in d_replay)
+        if (d_out != want).any():
+            raise AssertionError(f"deep checks at rest depth {rest} != oracle")
+        if (np.concatenate([a for _p, _o, a, _f in d_replay]) != d_out).any():
+            raise AssertionError("deep batch_check != the wave replay")
+        require_launched(d_launch, ("wave_tier0", "wave_lane", "wave_pack",
+                                    *WAVE_FAST_KERNELS), f"deep path {rest}")
+        require_wave_launches(d_launch, d_shapes, f"deep path {rest}")
+        d_stats[rest] = dict(checks_per_s=round(len(dq) / d_dt),
+                             allowed=int(d_out.sum()),
+                             leopard_answered=d_cnt["leopard_answered"],
+                             tier1_active=active, fallbacks=d_cnt["fallbacks"])
+    if d_stats[0]["leopard_answered"] != len(dq) or d_stats[0]["tier1_active"]:
+        raise AssertionError(f"deep checks at max depth left tier 0: {d_stats}")
+    if not d_stats[DEEP_REST]["tier1_active"]:
+        raise AssertionError("deep checks at the short rest depth never "
+                             "reached tier 1")
+    # hand-set probe modes: LM_ALLOW / LM_HIT_ONLY come only from the
+    # closure fold, which the engine does not run yet; at the max depth the
+    # hits are within the budget (LM_HIT_ONLY answers them), at rest depth
+    # 10 they are not
+    modes = {}
+    for rest in (0, DEEP_REST):
+        plan = deng.plan_wave(dq[: deng.max_batch], rest)
+        qmodes = plan.qpack.copy()
+        qmodes[7] = np.random.default_rng(SEED_MODES).integers(
+            0, 5, qmodes.shape[1]).astype(np.int32)
+        res = check_wave(plan, rec, (f"deep-modes-{rest}", wave_key(plan)),
+                         qpack=qmodes)
+        modes[rest] = {int(m): int(((res[:plan.n] >> 6) & 1)[
+            qmodes[7][:plan.n] == m].sum()) for m in range(5)}
+    if not modes[0][4]:
+        raise AssertionError("no LM_HIT_ONLY row was answered at the max depth")
+    log(f"[10] deep groups ({DEEP_CHAINS} chains x {DEEP_DEPTH}, "
+        f"{len(deng.store)} tuples, max depth {DEEP_MAX_DEPTH}): "
+        f"{len(dq)} root checks per run; at the max depth {d_stats[0]}; at "
+        f"rest depth {DEEP_REST} {d_stats[DEEP_REST]}; verdicts equal the "
+        f"oracle's and the wave replay; a wave with hand-set probe modes at "
+        f"each depth (rows answered per mode {modes}) == plain wave "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name in (*LEO_KERNELS, *WAVE_KERNELS):
+        log(f"[10] {name}: {len(rec.calls[name])} calls, kernel == plain (max "
+            f"abs err {rec.err[name]})")
+
+    return SimpleNamespace(
+        leng=leng, state=state, memb=memb, a_replay=a_replay,
+        b_replay=b_replay, a=(a_dt, a_launch, a_shapes, a_phases, a_by_shape),
+        b=(b_dt, b_launch, b_shapes, b_phases, b_by_shape), c_launch=c_launch,
+        c_shapes=c_shapes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -872,7 +1509,8 @@ def main() -> int:
     graph = build_synth_columnar(seed=SEED_GRAPH)
     log(f"[3] synth graph: {len(graph.store)} tuples built in "
         f"{time.perf_counter() - t0:.1f} s (full size, no cut)")
-    engine = DeviceCheckEngine(graph.store, graph.manager)
+    engine = DeviceCheckEngine(graph.store, graph.manager,
+                               leopard={"enabled": False})
     g = engine.device_tables()
     dev_bytes = sum(t.numel() * t.element_size() for t in g.values())
     log(f"[3] projection {engine.projection_build_s:.2f} s, upload "
@@ -1104,7 +1742,7 @@ def main() -> int:
     log(f"[6] host ms per phase of the timed mixed run: {mphases}")
     if mout != w2:
         raise AssertionError("timed mixed batch differs from the warm batch")
-    missing = [k for k, n in mlaunches.items() if n == 0]
+    missing = [k for k in (*KERNELS, *GEN_KERNELS) if mlaunches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the mixed path: {missing}")
     for shape in mshapes:
@@ -1113,7 +1751,7 @@ def main() -> int:
                     shape, levels):
             raise AssertionError("the adaptive schedule differs from the replay's")
     mby_shape = expected_launches(rec.calls, rec.dispatches, "mixed-main", mshapes)
-    for name in ALL_KERNELS:
+    for name in (*KERNELS, *GEN_KERNELS):
         if sum(mby_shape[name].values()) != mlaunches[name]:
             raise AssertionError(f"{name}: {mlaunches[name]} launches on the "
                                  f"mixed path, {mby_shape[name]} by dispatch shape")
@@ -1204,7 +1842,15 @@ def main() -> int:
         log(f"[6] {name}: {len(rec.calls[name])} calls, kernel == plain "
             f"(max abs err {rec.err[name]}, whole state compared)")
 
-    # -- 7. timing -------------------------------------------------------------
+    fz = fused_paths(graph, rec, mixed_q, mout, engine)
+    leng, state, memb = fz.leng, fz.state, fz.memb
+    a_replay, b_replay, c_launch = fz.a_replay, fz.b_replay, fz.c_launch
+    c_shapes = fz.c_shapes
+    a_dt, a_launch, _a_shapes, a_phases, a_by_shape = fz.a
+    b_dt, b_launch, _b_shapes, b_phases, b_by_shape = fz.b
+    lg = leng.device_tables()
+
+    # -- 11. timing ------------------------------------------------------------
     rows = time_kernels(g, rec, "main", KERNELS)
     mrows = time_kernels(g, rec, "mixed-main")
     forced = time_kernels(g, rec, "mixed-main-forced", GEN_KERNELS)
@@ -1216,7 +1862,7 @@ def main() -> int:
         for s, c in lb.items():
             r = per[s]
             busy += r["ms"] * c
-            log(f"[7] {name} at {shape_name(s)}: {r['ms']:.4f} ms/launch on the "
+            log(f"[11] {name} at {shape_name(s)}: {r['ms']:.4f} ms/launch on the "
                 f"card (host enqueue incl. {r['host_ms']:.4f} ms), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
                 f"{r['bound_ms']:.5f} ms (bytes), {c} launches in the timed "
@@ -1247,7 +1893,7 @@ def main() -> int:
         for s, r in every.items():
             c = lb.get(s, 0)
             mbusy += r["ms"] * c
-            log(f"[7] {name} at {shape_name(s)}: {r['ms']:.4f} ms/launch on the "
+            log(f"[11] {name} at {shape_name(s)}: {r['ms']:.4f} ms/launch on the "
                 f"card (replay spread up to {r['spread_ms']:.4f} ms; host "
                 f"{r['host_ms']:.4f} ms per eager call), plain "
                 f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.5f} "
@@ -1268,17 +1914,93 @@ def main() -> int:
             "spread_ms_by_shape": {shape_name(s): r["spread_ms"]
                                    for s, r in every.items()},
         })
+    # tier 0 and the fused wave: each kernel from its own path's calls
+    # (leo_probe: path C; wave_gen_lane: path B; the others: path A, with
+    # path B's numbers beside them)
+    by_path = {"fused-members": a_by_shape, "fused-mixed": b_by_shape,
+               "unfused-members": {"leo_probe": dict(c_shapes)}}
+    launches_of = {"fused-members": a_launch, "fused-mixed": b_launch,
+                   "unfused-members": c_launch}
+    trows = {ds: time_kernels(lg, rec, ds, names) for ds, names in (
+        ("fused-members", ("wave_tier0", "wave_lane", "wave_pack")),
+        ("fused-mixed", tuple(WAVE_KERNELS)),
+        ("unfused-members", tuple(LEO_KERNELS)))}
+    for name, (source, replaces) in {**LEO_KERNELS, **WAVE_KERNELS}.items():
+        ds = {"leo_probe": "unfused-members",
+              "wave_gen_lane": "fused-mixed"}.get(name, "fused-members")
+        per, lb = trows[ds][name], by_path[ds][name]
+        for d2, t2 in trows.items():
+            for s2, r in t2.get(name, {}).items():
+                log(f"[11] {name} at {shape_name(s2)} ({d2}): {r['ms']:.4f} "
+                    f"ms/launch on the card (replay spread up to "
+                    f"{r['spread_ms']:.4f} ms; host {r['host_ms']:.4f} ms per "
+                    f"eager call), plain {r['plain_ms']:.4f} ms, library "
+                    f"{r['library_ms']}, bound {r['bound_ms']:.6f} ms (bytes), "
+                    f"{by_path[d2].get(name, {}).get(s2, 0)} launches in the "
+                    f"timed run, mean of {r['calls']} calls")
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches_of[ds][name], "max_abs_err": rec.err[name],
+            "ms": weighted(per, lb, "ms"), "plain_ms": weighted(per, lb, "plain_ms"),
+            "bound_ms": weighted(per, lb, "bound_ms"), "bound_by": "bytes",
+            "library_ms": weighted(per, lb, "library_ms"),
+            "path": ds,
+            "launches_by_shape": {shape_name(s2): c for s2, c in lb.items()},
+            "ms_by_shape": {shape_name(s2): per[s2]["ms"] for s2 in lb},
+            "spread_ms_by_shape": {shape_name(s2): per[s2]["spread_ms"] for s2 in lb},
+        }
+        if name in WAVE_KERNELS and ds != "fused-mixed":
+            bper, blb = trows["fused-mixed"][name], b_by_shape[name]
+            entry["fused_mixed_path"] = {
+                "launches": b_launch[name], "ms": weighted(bper, blb, "ms"),
+                "bound_ms": weighted(bper, blb, "bound_ms")}
+        line.append(entry)
+
+    # one whole wave on the card, and the host's enqueue of it, per path;
+    # then the same wave without its retry lanes (the lanes are enqueued
+    # whether or not a row overflowed)
+    from ketotpu_torch.engine import fused as fdx
+
+    wave_times = {}
+    for path, (plan, _o, _a, _f), i in [("A", r, i) for i, r in enumerate(a_replay)] + [
+            ("B", r, i) for i, r in enumerate(b_replay)]:
+        qd = torch.from_numpy(plan.qpack).to(lg["row_ptr"].device)
+        for label, kw in (("as served", plan.kwargs),
+                          ("no retry lanes", dict(plan.kwargs, retry_lanes=0,
+                                                  retry_sched=None,
+                                                  gen_retry=None))):
+            dev_ms, spread, _h = calls_ms(
+                lambda kw=kw: fdx.run_fused_wave(plan.tables, qd, **kw))
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fdx.run_fused_wave(plan.tables, qd, **kw)
+            enq = (time.perf_counter() - t1) * 1e3
+            torch.cuda.synchronize()
+            n_launch = sum(kernels.LAUNCHES.values())
+            wave_times[(path, i, label)] = (dev_ms, enq, n_launch)
+            log(f"[11] path {path} wave {i} {shape_name(wave_key(plan))} {label}: "
+                f"{dev_ms:.4f} ms on the card (spread {spread:.4f}), host "
+                f"enqueue {enq:.3f} ms for {n_launch} launches")
+    for path, dt_s, ph in (("A", a_dt, a_phases), ("B", b_dt, b_phases)):
+        dev = sum(t[0] for k, t in wave_times.items()
+                  if k[0] == path and k[2] == "as served")
+        log(f"[11] where the timed path-{path} batch went: {dt_s * 1e3:.3f} ms "
+            f"wall; its waves {dev:.3f} ms on the card (each wave measured "
+            f"whole), a derived device busy share of {dev / (dt_s * 1e3):.4f}; "
+            f"host phases {ph} ms")
+
     host = [r["host_ms"] for per in rows.values() for r in per.values()]
-    log(f"[7] where the timed pure-OR batch went: {dt * 1e3:.3f} ms wall; kernels "
+    log(f"[11] where the timed pure-OR batch went: {dt * 1e3:.3f} ms wall; kernels "
         f"{busy:.3f} ms, derived (each shape's measured device ms per launch x "
         f"the timed run's launches at that shape; not read from a trace), a "
         f"derived device busy share of {busy / (dt * 1e3):.4f}; host phases "
         f"{phases} ms; host enqueue per wrapper call "
         f"{min(host):.4f}-{max(host):.4f} ms")
-    log(f"[7] where the timed mixed batch went: {mdt * 1e3:.3f} ms wall; kernels "
+    log(f"[11] where the timed mixed batch went: {mdt * 1e3:.3f} ms wall; kernels "
         f"{mbusy:.3f} ms, derived the same way, a derived device busy share of "
         f"{mbusy / (mdt * 1e3):.4f}; host phases {mphases} ms")
-    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -94,12 +94,14 @@ __device__ __forceinline__ int32_t& AX(const GenState& s, int col, int32_t c) {
 // -- gen_classify: _init_roots + _classify_level (+ the depth cap) ------------
 
 // One thread per task of the level (columns lo .. lo + n).  With qpack the
-// level is the roots, built first (level 0, n == q).  The level's live
+// level is the roots, built first (level 0, n == q) from its rows ns, obj,
+// rel, depth and the active row `act`.  The level's live
 // count goes to occ[level] (one atomicAdd per block).
 __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
                                int32_t n, int32_t level,
                                const int32_t* __restrict__ q_subj,
                                const int32_t* __restrict__ qpack,
+                               const int32_t* __restrict__ act_row,
                                int32_t last) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     bool live_slot = false;
@@ -109,7 +111,7 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
         bool skip, force;
         if (qpack != nullptr) {
             const int32_t q = st.q;
-            bool act = qpack[5 * q + i] != 0;
+            bool act = act_row[i] != 0;
             kind = K_CHECK;
             ns = act ? qpack[i] : -1;
             obj = act ? qpack[q + i] : -1;
@@ -620,10 +622,10 @@ constexpr int kThreads = 256;
 
 KT_EXPORT int gen_classify(Graph g, Prog p, GenState st, int32_t lo, int32_t n,
                            int32_t level, const int32_t* q_subj,
-                           const int32_t* qpack, int32_t last,
-                           cudaStream_t stream) {
+                           const int32_t* qpack, const int32_t* act,
+                           int32_t last, cudaStream_t stream) {
     k_gen_classify<<<kt_blocks(n, kThreads), kThreads, 0, stream>>>(
-        g, p, st, lo, n, level, q_subj, qpack, last);
+        g, p, st, lo, n, level, q_subj, qpack, act, last);
     return (int)cudaGetLastError();
 }
 

@@ -169,10 +169,12 @@ KT_EXPORT int pack_scatter(Items ch, const int32_t* q_found,
     return (int)cudaGetLastError();
 }
 
-// _init_state: roots in slots 0..nq-1 from the packed int32[6, nq] query
-// block (ns, obj, rel, subj, depth, active); depth clamped to the level
-// count; the live-root count goes to *occ0.
-__global__ void pack_init_state(const int32_t* __restrict__ qpack, int32_t nq,
+// _init_state: roots in slots 0..nq-1 from the packed query block (rows
+// ns, obj, rel, subj, depth of nq entries each, then any others) and its
+// active row `act`; depth clamped to the level count; the live-root count
+// goes to *occ0.
+__global__ void pack_init_state(const int32_t* __restrict__ qpack,
+                                const int32_t* __restrict__ act, int32_t nq,
                                 int32_t levels, Items f,
                                 int32_t* __restrict__ q_found,
                                 int32_t* __restrict__ q_over,
@@ -180,7 +182,7 @@ __global__ void pack_init_state(const int32_t* __restrict__ qpack, int32_t nq,
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     bool in_q = false;
     if (i < f.n) {
-        in_q = i < nq && qpack[5 * nq + i] != 0;
+        in_q = i < nq && act[i] != 0;
         int32_t depth = in_q ? qpack[4 * nq + i] : 0;
         f.qid[i] = in_q ? i : -1;
         f.ns[i] = in_q ? qpack[i] : -1;
@@ -198,14 +200,14 @@ __global__ void pack_init_state(const int32_t* __restrict__ qpack, int32_t nq,
     if (threadIdx.x == 0 && n_live > 0) atomicAdd(occ0, n_live);
 }
 
-KT_EXPORT int init_state(const int32_t* qpack, int32_t nq, int32_t levels, Items f,
-                         int32_t* q_found, int32_t* q_over, int32_t* occ0,
-                         cudaStream_t stream) {
+KT_EXPORT int init_state(const int32_t* qpack, const int32_t* act, int32_t nq,
+                         int32_t levels, Items f, int32_t* q_found,
+                         int32_t* q_over, int32_t* occ0, cudaStream_t stream) {
     cudaMemsetAsync(occ0, 0, sizeof(int32_t), stream);
     const int threads = 256;
     int32_t n = f.n > nq ? f.n : nq;
     pack_init_state<<<kt_blocks(n, threads), threads, 0, stream>>>(
-        qpack, nq, levels, f, q_found, q_over, occ0);
+        qpack, act, nq, levels, f, q_found, q_over, occ0);
     return (int)cudaGetLastError();
 }
 

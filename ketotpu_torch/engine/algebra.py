@@ -152,11 +152,13 @@ def _vs_size(vcap: int) -> int:
 # -- the JAX-shaped plain functions --------------------------------------------
 
 
-def _init_roots(qpack: Tensor, Q: int) -> Dict[str, Tensor]:
-    """Level-0 tasks: one tree CHECK per active query."""
+def _init_roots(qpack: Tensor, Q: int,
+                act: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Level-0 tasks: one tree CHECK per active query (``act``, default
+    the block's row 5)."""
     dev = qpack.device
     iota = torch.arange(Q, dtype=torch.int32, device=dev)
-    act = qpack[5] != 0
+    act = (qpack[5] if act is None else act) != 0
     zb = torch.zeros(Q, dtype=torch.bool, device=dev)
     return dict(
         kind=torch.zeros(Q, dtype=torch.int32, device=dev),
@@ -691,29 +693,37 @@ def _launch(fn: str, *args) -> None:
 
 
 def gen_classify(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
-                 qpack: Optional[Tensor] = None, last: bool = False) -> None:
+                 qpack: Optional[Tensor] = None, act: Optional[Tensor] = None,
+                 last: bool = False) -> None:
     """Classify one skeleton level in place (K7 ``_classify_level``; with
-    ``qpack``, level 0's roots first, ``_init_roots``): the task fields,
-    the aux columns, the dirty bits, the level's live count into the
-    occupancy; ``last`` also caps the tasks that still need children
+    ``qpack``, level 0's roots first, ``_init_roots``, from its rows ns,
+    obj, rel, depth and the active row ``act``, default row 5): the task
+    fields, the aux columns, the dirty bits, the level's live count into
+    the occupancy; ``last`` also caps the tasks that still need children
     (UNKNOWN + over)."""
+    if qpack is not None and act is None:
+        act = qpack[5]
     if st.tasks.device.type == "cpu":
-        return _gen_classify_plain(g, st, level, q_subj, qpack=qpack, last=last)
+        return _gen_classify_plain(g, st, level, q_subj, qpack=qpack, act=act,
+                                   last=last)
     lo, n = st.span(level)
-    kernels.require(q_subj, torch.int32, "q_subj", shape=(st.q,),
-                    device=st.tasks.device)
+    dev = st.tasks.device
+    kernels.require(q_subj, torch.int32, "q_subj", shape=(st.q,), device=dev)
     if qpack is not None:
-        kernels.require(qpack, torch.int32, "qpack", shape=(6, st.q),
-                        device=st.tasks.device)
+        kernels.require(qpack, torch.int32, "qpack",
+                        shape=(max(qpack.shape[0], 5), st.q), device=dev)
+        kernels.require(act, torch.int32, "act", shape=(st.q,), device=dev)
     _launch("gen_classify", kernels.graph(g), kernels.prog(g), kernels.gen_state(st),
-            lo, n, level, kernels.ptr(q_subj), kernels.ptr(qpack), int(last))
+            lo, n, level, kernels.ptr(q_subj), kernels.ptr(qpack),
+            kernels.ptr(act), int(last))
 
 
 def _gen_classify_plain(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
-                        qpack: Optional[Tensor] = None, last: bool = False) -> None:
+                        qpack: Optional[Tensor] = None,
+                        act: Optional[Tensor] = None, last: bool = False) -> None:
     Q = st.q
     if qpack is not None:
-        t = _init_roots(qpack, Q)
+        t = _init_roots(qpack, Q, act)
     else:
         t = {c: v for c, v in st.task_dict(level).items() if c in TASK_COLS[:12]}
     t, count, aux = _classify_level(g, t, q_subj)
@@ -968,8 +978,11 @@ def run_general_packed_plain(g: Tables, qpack, *, sizes: Tuple[int, ...],
 
 
 def _run_general(ops: _GenOps, g: Tables, qpack, sizes, fast_b: int, fast_sched,
-                 max_width: int, vcap: int):
-    """The program over the steps of ``ops``.  Returns (packed, state)."""
+                 max_width: int, vcap: int, act: Optional[Tensor] = None):
+    """The program over the steps of ``ops``, for the rows of ``qpack``
+    (rows ns, obj, rel, subj, depth first) that ``act`` marks (int32[Q] on
+    the tables' device; default the block's row 5).  Returns (packed,
+    state)."""
     dev = g["row_ptr"].device
     if isinstance(qpack, torch.Tensor):
         qp = qpack.to(device=dev, dtype=torch.int32).contiguous()
@@ -986,7 +999,8 @@ def _run_general(ops: _GenOps, g: Tables, qpack, sizes, fast_b: int, fast_sched,
     st = GenState.new(q, tuple(sizes), fast_b, len(fast_sched), vcap, dev)
     q_subj = qp[3]
     depth = len(sizes)
-    ops.classify(g, st, 0, q_subj, qpack=qp, last=depth == 0)
+    ops.classify(g, st, 0, q_subj, qpack=qp, act=qp[5] if act is None else act,
+                 last=depth == 0)
     for L, a in enumerate(sizes):
         offsets, _total, parent, ordinal = ops.arena_assign(st.acount(L), a)
         ops.construct(g, st, L, offsets, parent, ordinal, max_width=max_width)

@@ -1,24 +1,32 @@
-"""The CUDA check engine: host wrapper around the tier-1 and tier-2 kernels.
+"""The CUDA check engine: host wrapper around the tier-0, -1 and -2 kernels.
 
-The port's counterpart of the JAX package's ``engine/tpu.py``
-``DeviceCheckEngine`` as it runs with ``fused_dispatch`` off and Leopard
-disabled (the unfused cascade): callers hand it relation tuples, it
-answers allow/deny.  It
+The port of the JAX package's ``engine/tpu.py`` ``DeviceCheckEngine``:
+callers hand it relation tuples, it answers allow/deny.  It
 
 1. projects the store into a snapshot (``delta.build_snapshot_cols``) and
    uploads ``Snapshot.check_arrays()`` to the device once per store
-   version — any write makes the next batch re-project (the O(delta)
-   overlay of the JAX engine is not ported yet);
+   version, and with Leopard on (the default) builds the closure index
+   (``leopard.closure``) and ships its pair columns — any write makes the
+   next batch re-project and rebuild both (the O(delta) overlay and the
+   closure fold of the JAX engine are not ported yet);
 2. interns query strings to dense ids (unknown strings miss everywhere,
    which reproduces "unknown namespace => not allowed");
-3. classifies each query: pure-OR queries run the tier-1 BFS on the card
-   (``fastpath.run_fast_packed``); queries that can reach AND / NOT
-   (general rows) run the tier-2 algebra program on the card
-   (``algebra.run_general_packed``); queries whose lookup is a client
-   error go to the oracle, which raises the reference's typed error;
+3. classifies each query: Leopard-eligible rows are answered by the
+   closure index (tier 0); pure-OR queries run the tier-1 BFS on the card
+   (``fastpath``); queries that can reach AND / NOT (general rows) run the
+   tier-2 algebra program on the card (``algebra``); queries whose lookup
+   is a client error go to the oracle, which raises the reference's typed
+   error;
 4. retries each tier's overflow tail once on the card at ``retry_scale``x
    caps (a general retry also gets ``gen_levels_max`` levels), then
    answers what is still over, or ERR, on the exact host oracle.
+
+Two dispatch forms, as in JAX: the unfused cascade (tier 0 as one K6
+launch per chunk, whatever its size, fetched; then one tier-1 and one
+tier-2 dispatch, each fetched, each retried from the host), and with ``fused_dispatch`` the fused wave (``engine/fused.py``):
+the whole cascade and its retry lanes enqueued as one wave per chunk with
+one device-to-host copy.  The hot-spot result cache of the JAX engine is
+not ported.
 
 A CUDA error propagates: there is no fallback from the card to the host.
 """
@@ -29,7 +37,7 @@ import hashlib
 import threading
 import time
 from collections import Counter
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ from ketotpu_torch.api.types import RelationTuple
 from ketotpu_torch.engine import algebra as alg
 from ketotpu_torch.engine import delta as dl
 from ketotpu_torch.engine import fastpath as fp
+from ketotpu_torch.engine import fused as fdx
 from ketotpu_torch.engine.optable import R_ERR, R_IS
 from ketotpu_torch.engine.oracle import (
     DEFAULT_MAX_DEPTH,
@@ -47,6 +56,8 @@ from ketotpu_torch.engine.oracle import (
 )
 from ketotpu_torch.engine.snapshot import Snapshot
 from ketotpu_torch.engine.vocab import Vocab
+from ketotpu_torch.leopard import closure as leo
+from ketotpu_torch.leopard import device as leodev
 from ketotpu_torch.storage.namespaces import NamespaceManager
 
 
@@ -83,6 +94,47 @@ def _gen_mults(d: int):
 
 #: one general dispatch's static shapes: (sizes, fast_b, fast_sched, vcap)
 GenSchedule = Tuple[Tuple[int, ...], int, Tuple[Tuple[int, int], ...], int]
+
+
+class LeoState(NamedTuple):
+    """The closure index of one projection: the host index, its pair
+    columns on the device (None for an empty index) and the check tables
+    with those columns added (what the fused wave reads)."""
+
+    index: leo.ClosureIndex
+    pairs: Optional[Dict[str, torch.Tensor]]
+    tables: Optional[Dict[str, torch.Tensor]]
+
+
+class WavePlan(NamedTuple):
+    """One chunk's fused wave as the engine dispatches it: the int32[10, Q]
+    block, the tables, the keyword arguments of ``fused.run_fused_wave``,
+    and what the collector needs."""
+
+    qpack: np.ndarray
+    tables: Dict[str, torch.Tensor]
+    kwargs: dict
+    n: int
+    err: np.ndarray
+    general: np.ndarray
+    has_leo: bool
+
+    def shape(self):
+        """The wave's dispatch shape: its Q, its static schedules and
+        whether tier 0 has pair columns."""
+        return (self.qpack.shape[1], *(self.kwargs[k] for k in (
+            "fast_sched", "retry_sched", "retry_lanes", "gen", "gen_retry")),
+            "leo_sets" in self.tables)
+
+    @property
+    def flen(self) -> int:
+        fs = self.kwargs["fast_sched"]
+        return 0 if fs is None else len(fs)
+
+    @property
+    def glen(self) -> int:
+        gen = self.kwargs["gen"]
+        return 0 if gen is None else len(gen[0]) + 2 + len(gen[2])
 
 
 def upload(arrays: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
@@ -127,6 +179,9 @@ class DeviceCheckEngine:
         gen_levels: int = 12,
         gen_levels_max: int = 24,
         occ_headroom: float = 1.15,
+        leopard: Optional[dict] = None,
+        fused_dispatch: bool = False,
+        fused_retry_lanes: int = 1,
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -196,8 +251,34 @@ class DeviceCheckEngine:
         # the re-projection when the store moved), enqueue (the level loop's wrapper calls), fetch (the one D2H copy,
         # which waits for the device), retry (enqueue + fetch of the retry
         # dispatch), general (the general dispatch's enqueue and its fetch),
-        # general_retry (enqueue + fetch of the general retry), oracle
+        # general_retry (enqueue + fetch of the general retry), oracle; on
+        # the fused path plan (tier 0's probe modes, the wave's block and
+        # schedules), wave (the wave's enqueue) and fetch; leopard_build
+        # (the closure index builds)
         self.phase_seconds: Dict[str, float] = {}
+        # Leopard closure index (tier 0): rebuilt with every projection;
+        # None while disabled, too large or not built yet
+        lcfg = dict(leopard or {})
+        self.leopard_enabled = bool(lcfg.get("enabled", True))
+        self._leopard_max_pairs = int(lcfg.get("max_pairs", 4_000_000))
+        self._leo: Optional[LeoState] = None
+        self.leopard_answered = 0  # checks answered from the index
+        self.leopard_hits = 0  # of those, answered allowed
+        # fused tiered dispatch (engine/fused.py): one wave per chunk, one
+        # device-to-host copy; the constructor default stays off, as in
+        # JAX (the JAX serving config turns it on)
+        self.fused_dispatch = bool(fused_dispatch)
+        self.fused_retry_lanes = max(int(fused_retry_lanes), 0)
+        self.fused_waves = 0  # fused waves collected
+        self.fused_d2h_fetches = 0  # device-to-host copies of those (1/wave)
+        # per-tier row attribution of fused waves, from the returned masks
+        # (the cache tier is not ported: it stays 0)
+        self.fused_tier_rows = {
+            "cache": 0, "leopard": 0, "fastpath": 0, "general": 0,
+            "oracle": 0,
+        }
+        # fused waves enqueued, per WavePlan.shape()
+        self.wave_shapes: Counter = Counter()
 
     def _phase(self, name: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -207,14 +288,14 @@ class DeviceCheckEngine:
     # -- snapshot lifecycle -------------------------------------------------
 
     def _view(self):
-        """(snapshot, device tables), re-projecting when the store or the
-        namespace config moved since the last projection."""
+        """(snapshot, device tables, Leopard state), re-projecting when the
+        store or the namespace config moved since the last projection."""
         with self._view_lock:
             key = (self.store.version,
                    config_fingerprint(self.namespace_manager))
             if self._snap is None or key != self._snap_key:
                 self._rebuild(key)
-            return self._snap, self._device_arrays
+            return self._snap, self._device_arrays, self._leo
 
     def _columns(self) -> dl.TupleColumns:
         exporter = getattr(self.store, "export_columns", None)
@@ -250,9 +331,51 @@ class DeviceCheckEngine:
         self.rebuilds += 1
         with self._gen_lock:
             self._gen_sched_cache.clear()  # a new graph: re-adapt once
+        self._install_leopard(cols)
+
+    def _install_leopard(self, cols: dl.TupleColumns) -> None:
+        """(Re)build the closure index from the projection's columns and
+        ship its pair columns.  A closure past ``max_pairs`` leaves the
+        index off (the lower tiers answer everything)."""
+        self._leo = None
+        if not self.leopard_enabled:
+            return
+        idx = leo.ClosureIndex(max_width=self.max_width,
+                               max_pairs=self._leopard_max_pairs)
+        try:
+            idx.build_from_cols(cols, self.namespace_manager)
+        except leo.ClosureTooLarge:
+            return
+        idx.bind_vocab(self._vocab)
+        pairs = leodev.ship_pairs(idx, self.device)
+        tables = None
+        if pairs is not None:
+            tables = kernels.DeviceTables(self._device_arrays)
+            tables.update(leo_sets=pairs["sets"], leo_elts=pairs["elts"],
+                          leo_hops=pairs["hops"])
+        self._leo = LeoState(idx, pairs, tables)
+        self.phase_seconds["leopard_build"] = (
+            self.phase_seconds.get("leopard_build", 0.0) + idx.build_s)
+
+    def leopard_stats(self) -> dict:
+        """Gauge snapshot of tier 0 (the JAX engine's keto_leopard_*)."""
+        with self._view_lock:
+            state = self._leo
+        stats = state.index.stats() if state is not None else {
+            "pairs": 0.0, "dirty_sets": 0.0, "fallbacks": 0.0,
+            "build_s": 0.0, "builds": 0.0,
+        }
+        stats["answered"] = float(self.leopard_answered)
+        stats["hits"] = float(self.leopard_hits)
+        stats["active"] = 1.0 if state is not None else 0.0
+        return stats
 
     def snapshot(self) -> Snapshot:
         return self._view()[0]
+
+    def leopard_index(self) -> Optional[LeoState]:
+        """The current projection's Leopard state (None while off)."""
+        return self._view()[2]
 
     def device_tables(self) -> Dict[str, torch.Tensor]:
         """The uploaded check arrays of the current projection."""
@@ -261,23 +384,24 @@ class DeviceCheckEngine:
     def encode_general(self, queries: Sequence[RelationTuple], rest_depth: int = 0):
         """(encoded columns, general row indices) of one chunk: what
         :meth:`pack_general` takes."""
-        _g, enc, _err, general = self._prepare(queries, rest_depth)
+        _g, enc, _err, general, _leo = self._prepare(queries, rest_depth)
         return enc, np.flatnonzero(general)
 
     def pack_queries(self, queries: Sequence[RelationTuple], rest_depth: int = 0):
         """(qpack, err, general) of one chunk: the int32[6, Qpad] block the
         BFS reads (ns, obj, rel, subj, depth, active), padded to the
         batch bucket, and the rows it leaves to the oracle."""
-        _g, enc, err, general = self._prepare(queries, rest_depth)
+        _g, enc, err, general, _leo = self._prepare(queries, rest_depth)
         qpad = min(_bucket(len(queries)), self.frontier)
         return self._qpack(enc, ~(err | general), qpad), err, general
 
     def _prepare(self, queries, rest_depth: int):
-        """(device tables, encoded columns, err mask, general mask)."""
-        snap, g = self._view()
+        """(device tables, encoded columns, err mask, general mask, Leopard
+        state)."""
+        snap, g, leo_state = self._view()
         enc = self._encode(snap, queries, rest_depth)
         err, general = self._classify(snap, enc[0], enc[2])
-        return g, enc, err, general
+        return g, enc, err, general, leo_state
 
     # -- query encoding -----------------------------------------------------
 
@@ -514,8 +638,15 @@ class DeviceCheckEngine:
         if n == 0:
             return None
         t0 = time.perf_counter()
-        g, enc, err, general = self._prepare(queries, rest_depth)
+        g, enc, err, general, leo_state = self._prepare(queries, rest_depth)
+        if self.fused_dispatch:
+            return self._dispatch_fused(enc, err, general, g, leo_state,
+                                        rest_depth, t0)
+        # Leopard first: the rows it answers leave the BFS entirely
+        leo_res = self._leopard_answers(enc, err, general, leo_state)
         active = ~(err | general)
+        if leo_res is not None:
+            active &= ~leo_res[1]
         t1 = self._phase("encode", t0)
         res = None
         if active.any():
@@ -530,7 +661,177 @@ class DeviceCheckEngine:
             gi = np.flatnonzero(general)
             gres = self._run_general(g, enc, gi)
             self._phase("general", t1)
-        return enc, err, general, res, gi, gres, g
+        return enc, err, general, res, gi, gres, g, leo_res
+
+    # -- tier 0 --------------------------------------------------------------
+
+    def _leopard_answers(self, enc, err, general, leo_state: Optional[LeoState]):
+        """(allowed, answered) bool arrays from the closure index, or None
+        while the index is off: one binary search per row over the shipped
+        pair columns (one K6 launch), for every chunk size; only an index
+        with no pairs is searched on the host (there is nothing to find)."""
+        if leo_state is None or self.strict_mode:
+            return None
+        q_ns, q_obj, q_rel, q_subj, q_depth = enc
+        n = len(q_ns)
+        idx = leo_state.index
+        nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
+        probed = None
+        if leo_state.pairs is not None:
+            keys = np.where(
+                (nodes >= 0) & (q_subj >= 0),
+                (nodes.astype(np.int64) << 32) | q_subj.astype(np.int64),
+                np.int64(-1),
+            )
+            probed = leodev.probe_pairs(leo_state.pairs, keys, _bucket(n))
+        allowed, answered = idx.answer_checks(
+            nodes, q_subj, node_hi, int(q_depth[0]), probed=probed
+        )
+        answered &= ~(err | general)
+        allowed &= answered
+        self.leopard_answered += int(answered.sum())
+        self.leopard_hits += int(allowed.sum())
+        return allowed, answered
+
+    # -- the fused wave --------------------------------------------------------
+
+    def plan_wave(self, queries: Sequence[RelationTuple], rest_depth: int = 0):
+        """The fused wave the engine would dispatch for one chunk (see
+        :class:`WavePlan`); dispatches nothing."""
+        g, enc, err, general, leo_state = self._prepare(queries, rest_depth)
+        return self._plan_wave(enc, err, general, g, leo_state, rest_depth)
+
+    def _plan_wave(self, enc, err, general, g, leo_state, rest_depth: int):
+        """The JAX ``_dispatch_fused`` up to the dispatch: the host half of
+        tier 0 as one probe mode per row (``prep_fused_checks``), the probe
+        keys, the int32[10, Q] block and the tiers' static schedules.
+        Absent tiers drop out of the wave; the retry lanes stay in whenever
+        their tier is in, with or without rows to retry."""
+        n = len(enc[0])
+        q_ns, q_obj, q_rel, q_subj, q_depth = enc
+        lmode = np.zeros(n, np.int32)
+        leo_set = np.full(n, -1, np.int32)
+        leo_elt = np.full(n, -1, np.int32)
+        has_leo = leo_state is not None and not self.strict_mode
+        tables = g
+        if has_leo:
+            idx = leo_state.index
+            nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
+            if leo_state.pairs is not None:
+                lmode = idx.prep_fused_checks(nodes, q_subj, node_hi,
+                                              rest_depth)
+                probe_ok = (nodes >= 0) & (q_subj >= 0)
+                leo_set = np.where(probe_ok, nodes, -1).astype(np.int32)
+                leo_elt = np.where(probe_ok, q_subj, -1).astype(np.int32)
+                tables = leo_state.tables
+            else:
+                # no pair columns (empty index): the host answers, encoded
+                # as pre-resolved modes that need no search
+                allowed, answered = idx.answer_checks(
+                    nodes, q_subj, node_hi, int(q_depth[0]))
+                lmode[answered & allowed] = leo.LM_ALLOW
+                lmode[answered & ~allowed] = leo.LM_DENY
+        lmode[err | general] = leo.LM_NONE
+        fast_elig = ~(err | general)
+        qpad = min(_bucket(n), self.frontier)
+        padded = self._pad(enc, n, qpad)
+        pad = qpad - n
+        qpack = np.stack([
+            *padded,
+            np.pad(fast_elig, (0, pad)).astype(np.int32),
+            np.pad(general, (0, pad)).astype(np.int32),
+            np.pad(lmode, (0, pad)),
+            np.pad(leo_set, (0, pad), constant_values=-1),
+            np.pad(leo_elt, (0, pad), constant_values=-1),
+        ]).astype(np.int32)
+        fast_sched = retry_sched = None
+        lanes = 0
+        if fast_elig.any():
+            fast_sched = fp.level_schedule(
+                qpad, self.frontier, self.arena, self.max_depth, 1,
+                self._adaptive_mults(),
+            )
+            lanes = self.fused_retry_lanes if self.retry_scale > 1 else 0
+            if lanes:
+                rs = self.retry_scale
+                retry_sched = fp.level_schedule(
+                    qpad, rs * self.frontier, rs * self.arena, self.max_depth,
+                    rs,
+                )
+        gen = gen_retry = None
+        if general.any():
+            gen = self._gen_schedule(qpad, 1)
+            if self.retry_scale > 1 and self.fused_retry_lanes > 0:
+                gen_retry = self._gen_schedule(qpad, self.retry_scale)
+        kwargs = dict(fast_sched=fast_sched, retry_sched=retry_sched,
+                      retry_lanes=lanes, gen=gen, gen_retry=gen_retry,
+                      max_width=self.max_width, depth_slack=leo.DEPTH_SLACK)
+        return WavePlan(qpack, tables, kwargs, n, err, general, has_leo)
+
+    def _dispatch_fused(self, enc, err, general, g, leo_state, rest_depth: int,
+                        t0: float):
+        """Fused branch of ``_dispatch``: one wave (engine/fused.py) for
+        the whole chunk, fetched once at collect."""
+        t1 = self._phase("encode", t0)
+        plan = self._plan_wave(enc, err, general, g, leo_state, rest_depth)
+        t1 = self._phase("plan", t1)
+        self.wave_shapes[plan.shape()] += 1
+        out = fdx.run_fused_wave(plan.tables, plan.qpack, **plan.kwargs)
+        self._phase("wave", t1)
+        return plan, out
+
+    def _collect_fused(self, plan: WavePlan, out: torch.Tensor):
+        """Fetch one wave (its one device-to-host copy), decode the bit
+        field, feed the occupancy EMAs and the counters.  Returns
+        (allowed, fallback)."""
+        n, err, general = plan.n, plan.err, plan.general
+        qpad, flen, glen = plan.qpack.shape[1], plan.flen, plan.glen
+        t0 = time.perf_counter()
+        packed = out.cpu().numpy()
+        self._phase("fetch", t0)
+        self.fused_waves += 1
+        self.fused_d2h_fetches += 1
+        rows = packed[:n]
+        gcode = (rows & 3).astype(np.int8)
+        gover = ((rows >> 2) & 1).astype(bool)
+        gdirty = ((rows >> 3) & 1).astype(bool)
+        found = ((rows >> 4) & 1).astype(bool)
+        fast_fb = ((rows >> 5) & 1).astype(bool)
+        leo_ans = ((rows >> 6) & 1).astype(bool)
+        leo_allow = ((rows >> 7) & 1).astype(bool)
+        retried = ((rows >> 8) & 1).astype(bool)
+        gen_retried = ((rows >> 9) & 1).astype(bool)
+        if flen:
+            self._update_occ(packed[qpad: qpad + flen])
+        if glen:
+            self._update_gen_occ(packed[qpad + flen: qpad + flen + glen])
+        self.retries += int(retried.sum()) + int(gen_retried.sum())
+        self.general_retries += int(gen_retried.sum())
+        self.general_rows += int(general.sum())
+        if plan.has_leo:
+            self.leopard_answered += int(leo_ans.sum())
+            self.leopard_hits += int(leo_allow.sum())
+        allowed = np.zeros(n, bool)
+        fallback = err.copy()
+        allowed[general] = (gcode == R_IS)[general]
+        fallback[general] |= (gover | gdirty | (gcode == R_ERR))[general]
+        fmask = ~(err | general)
+        allowed[fmask] = found[fmask]
+        if plan.has_leo:
+            allowed[leo_ans] = leo_allow[leo_ans]
+        # fast_fb is masked to the fast-active rows in the wave, which
+        # already exclude the rows tier 0 answered
+        fallback |= fast_fb
+        # per-tier attribution: leopard -> oracle -> device, as in JAX
+        tr = self.fused_tier_rows
+        seen = leo_ans.copy() if plan.has_leo else np.zeros(n, bool)
+        tr["leopard"] += int(seen.sum())
+        orc = (fallback | err) & ~seen
+        tr["oracle"] += int(orc.sum())
+        rest = ~(seen | orc)
+        tr["general"] += int((rest & general).sum())
+        tr["fastpath"] += int((rest & ~general).sum())
+        return allowed, fallback
 
     def _collect_general(self, g, enc, gi: np.ndarray, gres):
         """Fetch one general dispatch (one device-to-host copy), retry its
@@ -568,15 +869,20 @@ class DeviceCheckEngine:
         return allowed, over | dirty | (codes == R_ERR)
 
     def _collect(self, handle):
-        """Fetch one chunk's verdicts (one device-to-host copy per tier),
-        retry each tier's overflow tail at retry_scale x caps.  Returns
-        (allowed, fallback)."""
-        enc, err, general, res, gi, gres, g = handle
+        """Fetch one chunk's verdicts (one device-to-host copy per tier, or
+        one per fused wave), retry each tier's overflow tail at
+        retry_scale x caps (unfused).  Returns (allowed, fallback)."""
+        if isinstance(handle[0], WavePlan):
+            return self._collect_fused(*handle)
+        enc, err, general, res, gi, gres, g, leo_res = handle
         n = err.shape[0]
         allowed = np.zeros(n, bool)
         fallback = err.copy()
         if gres is not None:
             allowed[gi], fallback[gi] = self._collect_general(g, enc, gi, gres)
+        if leo_res is not None:
+            # closure verdicts; their rows were inactive on the device
+            allowed[leo_res[1]] = leo_res[0][leo_res[1]]
         if res is None:
             return allowed, fallback
         t0 = time.perf_counter()
@@ -587,6 +893,8 @@ class DeviceCheckEngine:
         found = (codes & 1).astype(bool)
         over = ((codes >> 1) & 1).astype(bool)
         fmask = ~(err | general)
+        if leo_res is not None:
+            fmask &= ~leo_res[1]
         allowed[fmask] = found[fmask]
         # found is monotone: an overflow only voids not-yet-found queries
         unres = fmask & over & ~found

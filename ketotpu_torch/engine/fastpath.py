@@ -32,7 +32,9 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises):
 stream with no host sync; the caller fetches verdicts and occupancy with
 one device-to-host copy (:meth:`Packed.fetch`).  Its level loop,
 :func:`_level_loop`, also runs the algebra program's leaf sub-run
-(``engine/algebra.py``) from a leaf buffer in place of the roots.
+(``engine/algebra.py``) from a leaf buffer in place of the roots, and its
+pass over a device-resident query block, :func:`_fast_pass`, is tier 1 of
+the fused wave (``engine/fused.py``).
 
 Queries, frontier columns and the found/over bits are int32 (skip/force
 bool); found/over are 0/1 int32 so the kernels can OR them atomically.
@@ -149,40 +151,47 @@ def _scatter_or(flags: Tensor, idx: Tensor, bits: Tensor) -> Tensor:
 # -- roots (K5: _init_state) ---------------------------------------------------
 
 
-def init_state(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor):
+def init_state(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor,
+               act: Optional[Tensor] = None):
     """Roots in slots 0..Q-1 of a ``frontier``-slot frontier from the packed
-    int32[6, Q] block (ns, obj, rel, subj, depth, active); inactive queries
-    never enter.  Depth is clamped to ``levels`` (the final level is probe
-    only, which is sound only for d <= 1).  Writes the live-root count into
-    ``occ_out`` (int32[1]).  Returns (frontier, q_found, q_over, q_subj)."""
+    int32[R, Q] block (rows ns, obj, rel, subj, depth first; R >= 5) and
+    its active row ``act`` (int32[Q]; default row 5, the int32[6, Q]
+    block's); inactive queries never enter.  Depth is clamped to
+    ``levels`` (the final level is probe only, which is sound only for d
+    <= 1).  Writes the live-root count into ``occ_out`` (int32[1]).
+    Returns (frontier, q_found, q_over, q_subj)."""
     q = qpack.shape[1]
     if q > frontier:
         raise ValueError(f"batch {q} exceeds frontier capacity {frontier}")
+    if act is None:
+        act = qpack[5]
     if qpack.device.type == "cpu":
         return _init_state_plain(qpack, frontier=frontier, levels=levels,
-                                 occ_out=occ_out)
-    kernels.require(qpack, torch.int32, "qpack", shape=(6, q))
-    kernels.require(occ_out, torch.int32, "occ_out", shape=(1,), device=qpack.device)
+                                 occ_out=occ_out, act=act)
     dev = qpack.device
+    kernels.require(qpack, torch.int32, "qpack", shape=(max(qpack.shape[0], 5), q))
+    kernels.require(act, torch.int32, "act", shape=(q,), device=dev)
+    kernels.require(occ_out, torch.int32, "occ_out", shape=(1,), device=dev)
     f = Items.empty(frontier, dev)
     q_found = torch.empty(q, dtype=torch.int32, device=dev)
     q_over = torch.empty(q, dtype=torch.int32, device=dev)
     kernels.launch(
-        "pack", "init_state", kernels.ptr(qpack), q, levels, kernels.items(f),
-        kernels.ptr(q_found), kernels.ptr(q_over), kernels.ptr(occ_out),
-        kernels.stream(),
+        "pack", "init_state", kernels.ptr(qpack), kernels.ptr(act), q, levels,
+        kernels.items(f), kernels.ptr(q_found), kernels.ptr(q_over),
+        kernels.ptr(occ_out), kernels.stream(),
     )
     kernels.LAUNCHES["init_state"] += 1
     return f, q_found, q_over, qpack[3]
 
 
-def _init_state_plain(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor):
+def _init_state_plain(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor,
+                      act: Optional[Tensor] = None):
     q = qpack.shape[1]
     dev = qpack.device
     iota = torch.arange(frontier, dtype=torch.int32, device=dev)
-    act = torch.zeros(frontier, dtype=torch.bool, device=dev)
-    act[:q] = qpack[5] != 0
-    in_q = (iota < q) & act
+    live = torch.zeros(frontier, dtype=torch.bool, device=dev)
+    live[:q] = (qpack[5] if act is None else act) != 0
+    in_q = (iota < q) & live
 
     def pad(row, fill):
         x = torch.full((frontier,), fill, dtype=torch.int32, device=dev)
@@ -712,13 +721,6 @@ def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
     q = qpack.shape[1]
     if q > frontier:
         raise ValueError(f"batch {q} exceeds frontier capacity {frontier}")
-    ns_dim, rel_dim, _, _ = _dims(g)
-    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
-    if _pack_bits(q) + nsb + relb > 31:
-        raise NotImplementedError(
-            f"sort-based pack for {_pack_bits(q)}+{nsb}+{relb} key bits is "
-            "not ported"
-        )
     sched = level_schedule(q, frontier, arena, max_depth, boost, mults)
     levels = len(sched)
     if isinstance(qpack, torch.Tensor):
@@ -729,14 +731,33 @@ def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
         torch.empty(Packed.occ_offset(q) + 4 * levels, dtype=torch.uint8, device=dev),
         q, levels,
     )
-    occ = res.occ()
-    f, q_found, q_over, q_subj = ops.init_state(
-        qp, frontier=sched[0][0], levels=levels, occ_out=occ[0:1]
-    )
-    q_found, q_over = _level_loop(ops, g, f, q_found, q_over, q_subj, sched,
-                                  max_width=max_width, occ=occ)
+    q_found, q_over = _fast_pass(ops, g, qp, qp[5], sched, max_width=max_width,
+                                 occ=res.occ())
     ops.pack_verdicts(q_found, q_over, out=res.codes())
     return res
+
+
+def _fast_pass(ops: _Ops, g: Tables, qp: Tensor, act: Tensor, sched, *,
+               max_width: int, occ: Tensor):
+    """One BFS of the device-resident query block ``qp`` (int32[R, Q], rows
+    ns, obj, rel, subj, depth first) over its active rows ``act``
+    (int32[Q]) and the levels of ``sched`` (the JAX ``_fused_body``):
+    roots, then every level, enqueued with no host sync.  ``occ``
+    (int32[len(sched)]) receives the live items entering each level.
+    Returns (q_found, q_over), int32[Q]."""
+    ns_dim, rel_dim, _, _ = _dims(g)
+    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
+    q = qp.shape[1]
+    if _pack_bits(q) + nsb + relb > 31:
+        raise NotImplementedError(
+            f"sort-based pack for {_pack_bits(q)}+{nsb}+{relb} key bits is "
+            "not ported"
+        )
+    f, q_found, q_over, q_subj = ops.init_state(
+        qp, frontier=sched[0][0], levels=len(sched), occ_out=occ[0:1], act=act
+    )
+    return _level_loop(ops, g, f, q_found, q_over, q_subj, sched,
+                       max_width=max_width, occ=occ)
 
 
 def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,

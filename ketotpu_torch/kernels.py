@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``csrc/{probe,arena,children,pack,algebra}.cu`` (plus the
-shared headers ``common.cuh`` and ``scan.cuh``).  Each ``.cu`` compiles with
-``nvcc`` into its own shared library with a plain C interface, under
+The sources are ``csrc/{probe,arena,children,pack,algebra,leopard,wave}.cu``
+(plus the shared headers ``common.cuh``, ``scan.cuh`` and ``leopard.cuh``).
+Each ``.cu`` compiles with ``nvcc`` into its own shared library with a
+plain C interface, under
 ``build/ketotpu_torch/`` at the root of the checkout, named by a digest of
 its sources and flags so a stale build is never loaded.  The libraries are
 built on first use (all ``nvcc`` processes run at once) and loaded
@@ -10,8 +11,9 @@ with ``ctypes``; pointers and the stream travel as ``c_void_p``.
 
 The wrappers that launch the kernels live beside their plain PyTorch
 versions (``engine/fastpath.py``, ``engine/xutil.py``,
-``engine/algebra.py``).  Each wrapper adds
-one to its entry of :data:`LAUNCHES` where it launches, and nowhere else.
+``engine/algebra.py``, ``leopard/device.py``, ``engine/fused.py``).  Each
+wrapper adds one to its entry of :data:`LAUNCHES` where it launches, and
+nowhere else.
 Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -29,8 +31,8 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-MODULES = ("probe", "arena", "children", "pack", "algebra")
-HEADERS = ("common.cuh", "scan.cuh")
+MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave")
+HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +52,11 @@ LAUNCHES: Dict[str, int] = {
     "gen_collect": 0,
     "gen_up": 0,
     "gen_pack": 0,
+    "leo_probe": 0,
+    "wave_tier0": 0,
+    "wave_lane": 0,
+    "wave_gen_lane": 0,
+    "wave_pack": 0,
 }
 
 #: the largest visited set: its claim array fills the one block's shared
@@ -186,17 +193,26 @@ _SIGNATURES = {
     "pack": {
         "pack_scatter": [Items, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, Items, _P, _P],
-        "init_state": [_P, _I, _I, Items, _P, _P, _P, _P],
+        "init_state": [_P, _P, _I, _I, Items, _P, _P, _P, _P],
         "pack_verdicts": [_P, _P, _I, _P, _P],
     },
     "algebra": {
-        "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _I, _P],
+        "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _P, _I, _P],
         "gen_construct": [Graph, Prog, GenState, _I, _I, _I, _I, _P, _P, _P,
                           _I, _P],
         "gen_visited": [GenState, _I, _I, _P, _P],
         "gen_collect": [GenState, _P, _P, _P, _P, _P, _P],
         "gen_up": [GenState, _I, _I, _I, _I, _I, _P, _P, _P],
         "gen_pack": [GenState, _P],
+    },
+    "leopard": {
+        "leo_probe": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    },
+    "wave": {
+        "wave_tier0": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        "wave_lane": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "wave_gen_lane": [_P, _P, _I, _P, _P, _P, _P],
+        "wave_pack": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     },
 }
 

@@ -1,0 +1,771 @@
+"""The Leopard closure index: flattened set-containment as sorted pairs.
+
+The port's copy of the JAX package's ``leopard/closure.py``: host numpy
+code, unchanged, so both packages build identical pair arrays and answer
+identically.  The tuple graph's *set-containment* relation — node
+``(ns, obj, rel)`` contains node ``(s_ns, s_obj, s_rel)`` whenever a
+tuple's subject is that SubjectSet — is transitively closed here into two
+flat pair families:
+
+* **set pairs** ``(ancestor_node, descendant_node, min_hops)`` — the
+  closure of the containment edges themselves (no identity pairs);
+* **element pairs** ``(set_node, element_subject, min_hops)`` — the
+  headline ``(set_id, element_id)`` index: every subject (by vocab
+  subject id, SubjectIDs and SubjectSets alike — the oracle's direct
+  check matches both) reachable from a node through any number of
+  containment hops, with the fewest hops recorded.
+
+Both closures are built **vectorized on the host**: containment edges are
+repeatedly self-joined (frontier doubling — min-plus matrix squaring, so
+``ceil(log2(diameter))`` rounds) with numpy ``searchsorted``/``repeat``
+CSR expansion and packed-int64 ``lexsort`` dedup, the same idiom
+``delta.build_snapshot_cols`` uses.  No per-tuple Python loops.
+
+Hop counts make check interception *depth-exact*: a pair at ``h`` hops is
+found by the reference engine iff the remaining depth budget is at least
+``h + 2`` (one level to enter the relation, one to match the subject).
+A hit below that budget simply declines, falling through to the BFS.
+
+Exactness envelope.  Closure verdicts are the BFS-complete answer.  Nodes
+where the engine's arbitration band could disagree with the closure are
+*tainted* and never intercepted: relations carrying a subject-set rewrite
+(closure only models direct containment), nodes whose tuple count reaches
+``max_width`` (the oracle truncates there), and — by a backward pass over
+the set closure — every node that can reach a tainted one.
+
+Incremental maintenance (:meth:`ClosureIndex.apply_changes`): additions
+**append** closure pairs (exact cross products of known ancestors x known
+reachable elements, kept in small delta dicts on top of the immutable base
+arrays), deletions **mark the affected set ids dirty** (the node plus all
+its ancestors) so queries touching them decline to the host oracle;
+anything the delta cannot represent asks for a rebuild instead of
+guessing.  The port's engine rebuilds the index with every projection and
+does not fold changes yet; the fold is the only producer of the
+``LM_ALLOW`` and ``LM_HIT_ONLY`` probe modes.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from ketotpu_torch.api.types import RelationTuple, SubjectSet
+
+# Containment chains of h hops need h + 2 depth budget in the reference
+# engine (each _check_* level spends one unit; the final traverser match
+# happens one level below the last expansion).
+DEPTH_SLACK = 2
+
+# Fused-dispatch probe row modes (engine/fused.py): prep_fused_checks
+# resolves everything that needs host dict state (taint/dirty sets, the
+# delta pair dict, the rewrite-eligibility test) into one int32 mode per
+# row; the device finishes the clean rows with its in-program binary
+# search.  The split is bit-identical to answer_checks by construction —
+# see prep_fused_checks for the per-mode argument.
+LM_NONE = 0  # ineligible: the index must not answer this row
+LM_PROBE = 1  # clean, no delta pair: device formula answers
+LM_ALLOW = 2  # pre-answered allow (delta pair within the depth budget)
+LM_DENY = 3  # pre-answered deny (unknown node, rewrite-free relation)
+LM_HIT_ONLY = 4  # delta pair beyond budget: answer only on base hit+depth
+
+_EMPTY32 = np.empty(0, np.int32)
+
+
+def _dedup_min(src: np.ndarray, dst: np.ndarray, hop: np.ndarray):
+    """Dedup (src, dst) pairs keeping the minimum hop; sorted by packed key."""
+    if len(src) == 0:
+        return _EMPTY32, _EMPTY32, _EMPTY32
+    packed = (src.astype(np.int64) << 32) | dst.astype(np.int64)
+    # lexsort: last key is primary -> sorted by packed, ties by hop
+    # ascending, so the first row of each key carries the min hop.
+    order = np.lexsort((hop, packed))
+    p = packed[order]
+    first = np.ones(len(p), bool)
+    first[1:] = p[1:] != p[:-1]
+    keep = order[first]
+    return (
+        src[keep].astype(np.int32),
+        dst[keep].astype(np.int32),
+        hop[keep].astype(np.int32),
+    )
+
+
+def _compose(
+    l_src: np.ndarray, l_dst: np.ndarray, l_hop: np.ndarray,
+    r_src: np.ndarray, r_dst: np.ndarray, r_hop: np.ndarray,
+):
+    """Sparse relational join: (a->b, h1) x (b->c, h2) => (a->c, h1+h2).
+
+    The right side must be sorted by ``r_src``.  Pure numpy CSR
+    expansion: searchsorted for each left dst's run, repeat + arange for
+    the flattened gather.
+    """
+    if len(l_src) == 0 or len(r_src) == 0:
+        return _EMPTY32, _EMPTY32, _EMPTY32
+    lo = np.searchsorted(r_src, l_dst, side="left")
+    hi = np.searchsorted(r_src, l_dst, side="right")
+    cnt = hi - lo
+    total = int(cnt.sum())
+    if total == 0:
+        return _EMPTY32, _EMPTY32, _EMPTY32
+    out_src = np.repeat(l_src, cnt)
+    out_hop = np.repeat(l_hop, cnt)
+    starts = np.repeat(lo, cnt)
+    offs = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(cnt) - cnt, cnt
+    )
+    idx = starts + offs
+    return out_src, r_dst[idx], out_hop + r_hop[idx]
+
+
+class ClosureTooLarge(Exception):
+    """Closure exceeded leopard.max_pairs — index disabled until shrunk."""
+
+
+class ClosureIndex:
+    """Immutable base pair arrays + bounded mutable delta on top.
+
+    All ids are the engine vocab's dense int32 ids; node identity is the
+    packed int64 key ``((ns * R + rel) << 32) | obj`` with ``R`` frozen
+    at build time (the vocab is append-only, so ids never move — a
+    relation id >= R simply cannot appear in an indexed tuple).
+    """
+
+    def __init__(
+        self,
+        *,
+        max_pairs: int = 4_000_000,
+        rebuild_delta_pairs: int = 4096,
+        rebuild_dirty_sets: int = 512,
+        max_width: int = 100,
+    ):
+        self.max_pairs = int(max_pairs)
+        self.rebuild_delta_pairs = int(rebuild_delta_pairs)
+        self.rebuild_dirty_sets = int(rebuild_dirty_sets)
+        self.max_width = int(max_width)
+        self.build_s = 0.0
+        self.builds = 0
+        self.fallbacks = 0  # queries/listings declined (dirty/tainted)
+        self._reset_empty()
+
+    # ------------------------------------------------------------- build
+
+    def _reset_empty(self) -> None:
+        self.R = 1
+        self.nodes = np.empty(0, np.int64)  # sorted packed node keys
+        self.n_nodes = 0
+        # set closure, sorted by (src, dst)
+        self.set_src = _EMPTY32
+        self.set_dst = _EMPTY32
+        self.set_hop = _EMPTY32
+        # the same pairs re-ordered by (dst, src) for ancestor lookups
+        self.rset_dst = _EMPTY32
+        self.rset_src = _EMPTY32
+        self.rset_hop = _EMPTY32
+        # element closure: packed (set << 32 | elt) sorted, plus hops;
+        # elt_set/elt_e are the unpacked views for slicing/enumeration
+        self.elt_packed = np.empty(0, np.int64)
+        self.elt_set = _EMPTY32
+        self.elt_e = _EMPTY32
+        self.elt_hop = _EMPTY32
+        # per-elt ordering for reverse (ListObjects) lookups
+        self.relt_e = _EMPTY32
+        self.relt_set = _EMPTY32
+        self.tainted = np.empty(0, bool)
+        self._rewrite_his: Set[int] = set()
+        self._reset_delta()
+
+    def _reset_delta(self) -> None:
+        self.dirty: Set[int] = set()
+        # delta closures: exact additions since build (min-hop values)
+        self._d_elt: Dict[Tuple[int, int], int] = {}  # (set, e) -> hop
+        self._d_elt_by_set: Dict[int, Dict[int, int]] = {}
+        self._d_elt_by_e: Dict[int, Dict[int, int]] = {}
+        self._d_set_by_src: Dict[int, Dict[int, int]] = {}
+        self._d_set_by_dst: Dict[int, Dict[int, int]] = {}
+        self._d_taint: Set[int] = set()
+        self._d_node_tuples: Dict[int, int] = {}
+
+    @property
+    def pairs(self) -> int:
+        return int(len(self.elt_packed)) + len(self._d_elt)
+
+    @property
+    def dirty_sets(self) -> int:
+        return len(self.dirty)
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "pairs": float(self.pairs),
+            "set_pairs": float(len(self.set_src)),
+            "nodes": float(self.n_nodes),
+            "dirty_sets": float(self.dirty_sets),
+            "delta_pairs": float(len(self._d_elt)),
+            "build_s": self.build_s,
+            "builds": float(self.builds),
+            "fallbacks": float(self.fallbacks),
+        }
+
+    def build_from_cols(self, cols, manager) -> None:
+        """Vectorized full (re)build from the engine's column cache.
+
+        Raises :class:`ClosureTooLarge` when the closure would exceed
+        ``max_pairs``; the caller should then disable the index (queries
+        fall back to the normal paths) rather than serve a truncation.
+        """
+        t0 = time.perf_counter()
+        self._reset_empty()
+        vocab = cols.vocab
+        self.R = max(len(vocab.relations), 1)
+        R = np.int64(self.R)
+
+        live = np.flatnonzero(cols.alive[: cols.n])
+        if len(live):
+            ns = cols.ns[live].astype(np.int64)
+            rel = cols.rel[live].astype(np.int64)
+            obj = cols.obj[live].astype(np.int64)
+            packed = ((ns * R + rel) << 32) | obj
+            self.nodes = np.unique(packed)
+            self.n_nodes = int(len(self.nodes))
+            node_of_row = np.searchsorted(self.nodes, packed).astype(np.int32)
+
+            # every live row is a direct member (the oracle's direct
+            # check matches SubjectSet subjects by equality too)
+            d_node = node_of_row
+            d_subj = cols.subj[live]
+
+            # containment edges: rows whose subject is a SubjectSet AND
+            # whose target node has tuples of its own (an edge into an
+            # empty node contributes no members; tuples appearing there
+            # later arrive via the changelog and re-key the node table)
+            is_set = cols.is_set[live] == 1
+            e_rows = np.flatnonzero(is_set)
+            if len(e_rows):
+                t_ns = cols.s_ns[live][e_rows].astype(np.int64)
+                t_rel = cols.s_rel[live][e_rows].astype(np.int64)
+                t_obj = cols.s_obj[live][e_rows].astype(np.int64)
+                t_packed = ((t_ns * R + t_rel) << 32) | t_obj
+                pos = np.searchsorted(self.nodes, t_packed)
+                pos_c = np.minimum(pos, self.n_nodes - 1)
+                known = self.nodes[pos_c] == t_packed
+                e_src = d_node[e_rows[known]]
+                e_dst = pos_c[known].astype(np.int32)
+                e_hop = np.ones(len(e_src), np.int32)
+            else:
+                e_src = e_dst = e_hop = _EMPTY32
+
+            # --- set closure: frontier doubling (min-plus squaring) ---
+            src, dst, hop = _dedup_min(e_src, e_dst, e_hop)
+            keep = src != dst
+            src, dst, hop = src[keep], dst[keep], hop[keep]
+            for _ in range(64):
+                if len(src) > self.max_pairs:
+                    self._reset_empty()
+                    raise ClosureTooLarge(
+                        f"set closure exceeds max_pairs={self.max_pairs}"
+                    )
+                n_src, n_dst, n_hop = _compose(src, dst, hop, src, dst, hop)
+                m_src, m_dst, m_hop = _dedup_min(
+                    np.concatenate([src, n_src]),
+                    np.concatenate([dst, n_dst]),
+                    np.concatenate([hop, n_hop]),
+                )
+                keep = m_src != m_dst  # min-hop paths are cycle-free
+                m_src, m_dst, m_hop = m_src[keep], m_dst[keep], m_hop[keep]
+                if len(m_src) == len(src) and np.array_equal(m_hop, hop):
+                    break
+                src, dst, hop = m_src, m_dst, m_hop
+            self.set_src, self.set_dst, self.set_hop = src, dst, hop
+            r_order = np.lexsort((src, dst))
+            self.rset_dst = dst[r_order]
+            self.rset_src = src[r_order]
+            self.rset_hop = hop[r_order]
+
+            # --- element closure: direct members + closure-extended ---
+            d_order = np.argsort(d_node, kind="stable")
+            x_src, x_e, x_hop = _compose(
+                src, dst, hop,
+                d_node[d_order], d_subj[d_order],
+                np.zeros(len(d_order), np.int32),
+            )
+            elt_set, elt_e, elt_hop = _dedup_min(
+                np.concatenate([d_node, x_src]),
+                np.concatenate([d_subj, x_e]),
+                np.concatenate([np.zeros(len(d_node), np.int32), x_hop]),
+            )
+            if len(elt_set) > self.max_pairs:
+                self._reset_empty()
+                raise ClosureTooLarge(
+                    f"element closure exceeds max_pairs={self.max_pairs}"
+                )
+            self.elt_set, self.elt_e, self.elt_hop = elt_set, elt_e, elt_hop
+            self.elt_packed = (
+                (elt_set.astype(np.int64) << 32) | elt_e.astype(np.int64)
+            )
+            re_order = np.lexsort((elt_set, elt_e))
+            self.relt_e = elt_e[re_order]
+            self.relt_set = elt_set[re_order]
+
+            # --- taint: where closure semantics could exceed the
+            # engine's arbitration band ---
+            self._rewrite_his = self._rewrite_his_from(manager, vocab)
+            node_hi = (self.nodes >> 32).astype(np.int64)
+            t0m = np.isin(
+                node_hi,
+                np.fromiter(self._rewrite_his, np.int64, len(self._rewrite_his)),
+            ) if self._rewrite_his else np.zeros(self.n_nodes, bool)
+            counts = np.bincount(node_of_row, minlength=self.n_nodes)
+            t0m |= counts >= self.max_width
+            tainted = t0m.copy()
+            if len(src):
+                tainted[src[t0m[dst]]] = True
+            self.tainted = tainted
+        self.build_s = time.perf_counter() - t0
+        self.builds += 1
+
+    @staticmethod
+    def _rewrite_his_from(manager, vocab) -> Set[int]:
+        his: Set[int] = set()
+        if manager is None:
+            return his
+        R = max(len(vocab.relations), 1)
+        try:
+            namespaces = manager.namespaces()
+        except Exception:
+            return his
+        for ns in namespaces:
+            nsc = vocab.namespaces.lookup(ns.name)
+            if nsc < 0:
+                continue
+            for rel in ns.relations or []:
+                if rel.subject_set_rewrite is None:
+                    continue
+                relc = vocab.relations.lookup(rel.name)
+                if relc >= 0:
+                    his.add(nsc * R + relc)
+        return his
+
+    # ----------------------------------------------------------- lookups
+
+    def node_id(self, nsc: int, objc: int, relc: int) -> int:
+        """Dense node id for vocab ids, or -1 when the node has no tuples."""
+        if nsc < 0 or objc < 0 or relc < 0 or relc >= self.R:
+            return -1
+        key = np.int64((np.int64(nsc) * self.R + relc) << 32 | objc)
+        pos = int(np.searchsorted(self.nodes, key))
+        if pos < self.n_nodes and self.nodes[pos] == key:
+            return pos
+        return -1
+
+    def node_ids_np(
+        self, q_ns: np.ndarray, q_obj: np.ndarray, q_rel: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized node lookup: (node_ids, node_hi) with -1 misses.
+
+        ``node_hi`` is ``ns * R + rel`` whenever both ids are indexable
+        (even if the object is unknown) — the rewrite-eligibility test
+        for unknown nodes needs it.
+        """
+        n = len(q_ns)
+        hi_ok = (q_ns >= 0) & (q_rel >= 0) & (q_rel < self.R)
+        node_hi = np.where(
+            hi_ok, q_ns.astype(np.int64) * self.R + q_rel, np.int64(-1)
+        )
+        nodes = np.full(n, -1, np.int32)
+        valid = hi_ok & (q_obj >= 0)
+        if self.n_nodes and valid.any():
+            keys = (node_hi[valid] << 32) | q_obj[valid].astype(np.int64)
+            pos = np.searchsorted(self.nodes, keys)
+            pos_c = np.minimum(pos, self.n_nodes - 1)
+            hit = self.nodes[pos_c] == keys
+            nodes[valid] = np.where(hit, pos_c, -1).astype(np.int32)
+        return nodes, node_hi
+
+    def node_range(self, nsc: int, relc: int) -> Tuple[int, int]:
+        """Node-id range [lo, hi) for every object under (ns, rel) —
+        node keys sort by (hi, obj), so the range is contiguous."""
+        if nsc < 0 or relc < 0 or relc >= self.R:
+            return 0, 0
+        hi_key = np.int64(nsc) * self.R + relc
+        lo = int(np.searchsorted(self.nodes, hi_key << 32))
+        hi = int(np.searchsorted(self.nodes, (hi_key + 1) << 32))
+        return lo, hi
+
+    def _ancestors(self, node: int) -> Dict[int, int]:
+        """All sets containing ``node`` (transitively), node itself at 0."""
+        anc = {node: 0}
+        lo = int(np.searchsorted(self.rset_dst, node, side="left"))
+        hi = int(np.searchsorted(self.rset_dst, node, side="right"))
+        for a, h in zip(
+            self.rset_src[lo:hi].tolist(), self.rset_hop[lo:hi].tolist()
+        ):
+            anc[a] = min(anc.get(a, h), h)
+        for a, h in self._d_set_by_dst.get(node, {}).items():
+            anc[a] = min(anc.get(a, h), h)
+        return anc
+
+    def _descendants(self, node: int) -> Dict[int, int]:
+        desc = {node: 0}
+        lo = int(np.searchsorted(self.set_src, node, side="left"))
+        hi = int(np.searchsorted(self.set_src, node, side="right"))
+        for d, h in zip(
+            self.set_dst[lo:hi].tolist(), self.set_hop[lo:hi].tolist()
+        ):
+            desc[d] = min(desc.get(d, h), h)
+        for d, h in self._d_set_by_src.get(node, {}).items():
+            desc[d] = min(desc.get(d, h), h)
+        return desc
+
+    def _elements_of(self, node: int) -> Dict[int, int]:
+        """elt id -> min hops, merging base slice and delta."""
+        key_lo = np.int64(node) << 32
+        lo = int(np.searchsorted(self.elt_packed, key_lo))
+        hi = int(np.searchsorted(self.elt_packed, key_lo + (1 << 32)))
+        out = dict(zip(
+            self.elt_e[lo:hi].tolist(), self.elt_hop[lo:hi].tolist()
+        ))
+        for e, h in self._d_elt_by_set.get(node, {}).items():
+            out[e] = min(out.get(e, h), h)
+        return out
+
+    def _is_tainted(self, node: int) -> bool:
+        return bool(self.tainted[node]) or node in self._d_taint
+
+    def answer_checks(
+        self,
+        nodes: np.ndarray,
+        subjects: np.ndarray,
+        node_hi: np.ndarray,
+        rest_depth: int,
+        probed: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched membership verdicts: (allowed, answered) bool arrays.
+
+        ``nodes`` is int32 node ids (-1 = node unknown to the index);
+        ``node_hi`` is the packed ``ns * R + rel`` per query (for the
+        rewrite-eligibility test of unknown nodes); ``probed`` optionally
+        carries precomputed whole-batch (hit, hop) arrays from the device
+        probe (leopard/device.py) — bit-identical to the host search.  A
+        query is answered iff its verdict is provably what the engine
+        would produce:
+
+        * unknown node (or unknown ns/obj/rel strings), relation
+          rewrite-free -> False (nothing indexable there);
+        * known clean node, pair hit at hops h with h + 2 <= rest_depth
+          -> True;
+        * known clean node, pair miss (base and delta) -> False;
+        * everything else (tainted, dirty, hit beyond the depth budget)
+          declines and the query continues down the normal path.
+        """
+        n = len(nodes)
+        allowed = np.zeros(n, bool)
+        answered = np.zeros(n, bool)
+        if n == 0:
+            return allowed, answered
+        known = nodes >= 0
+        # unknown node: no tuples => deny, unless a rewrite could reach
+        # members anyway (node_hi = -1 means the namespace or relation
+        # string is not even interned, so no rewrite can exist for it)
+        if self._rewrite_his:
+            rw = np.isin(
+                node_hi,
+                np.fromiter(
+                    self._rewrite_his, np.int64, len(self._rewrite_his)
+                ),
+            )
+        else:
+            rw = np.zeros(n, bool)
+        answered |= ~known & ~rw
+
+        if known.any() and self.n_nodes:
+            kn = np.flatnonzero(known)
+            node_k = nodes[kn]
+            clean = ~self.tainted[node_k]
+            if self._d_taint or self.dirty:
+                bad = self._d_taint | self.dirty
+                clean &= ~np.isin(node_k, np.fromiter(bad, np.int64, len(bad)))
+            if self.dirty:
+                # observability: checks that had to decline because a
+                # deletion dirtied the set they touch
+                darr = np.fromiter(self.dirty, np.int64, len(self.dirty))
+                self.fallbacks += int(np.isin(node_k, darr).sum())
+            if probed is not None:
+                hit = probed[0][kn].copy()
+                hop = probed[1][kn]
+            else:
+                keys = (node_k.astype(np.int64) << 32) | subjects[kn].astype(
+                    np.int64
+                )
+                pos = np.searchsorted(self.elt_packed, keys)
+                pos_c = np.minimum(pos, max(len(self.elt_packed) - 1, 0))
+                hit = (
+                    (self.elt_packed[pos_c] == keys)
+                    if len(self.elt_packed)
+                    else np.zeros(len(keys), bool)
+                )
+                hop = np.where(
+                    hit,
+                    self.elt_hop[pos_c] if len(self.elt_hop) else 0,
+                    0,
+                )
+            ok_depth = hop + DEPTH_SLACK <= rest_depth
+            if self._d_elt:
+                # delta can add pairs or improve hops on base hits
+                for j in np.flatnonzero(clean & ~(hit & ok_depth)).tolist():
+                    dh = self._d_elt.get(
+                        (int(node_k[j]), int(subjects[kn[j]]))
+                    )
+                    if dh is not None:
+                        hit[j] = True
+                        ok_depth[j] = dh + DEPTH_SLACK <= rest_depth
+            ans_k = clean & (ok_depth | ~hit)
+            answered[kn] = ans_k
+            allowed[kn] = ans_k & hit
+        return allowed, answered
+
+    def prep_fused_checks(
+        self,
+        nodes: np.ndarray,
+        subjects: np.ndarray,
+        node_hi: np.ndarray,
+        rest_depth: int,
+    ) -> np.ndarray:
+        """Host half of ``answer_checks`` for the fused wave cascade:
+        int32 probe modes (LM_*), one per row.  Everything that needs
+        dict state resolves here; the device finishes LM_PROBE /
+        LM_HIT_ONLY rows with the in-program binary search over the
+        shipped pairs.  Mode-by-mode equivalence with answer_checks:
+
+        * LM_DENY — unknown node, rewrite-free relation: answer_checks
+          denies unconditionally, so the device can too.
+        * LM_PROBE — clean node, no delta pair: the device computes the
+          exact base formula ``ans = ok_depth | ~hit, allow = ans & hit``.
+        * LM_ALLOW — delta pair within the depth budget: answer_checks
+          allows whether or not the base probe hits (a base hit within
+          budget allows directly; otherwise the delta supplies the hit
+          with an in-budget hop), so the verdict is device-independent.
+        * LM_HIT_ONLY — delta pair beyond the budget: answer_checks
+          answers only when the base probe hits within budget (otherwise
+          the delta forces ``hit`` with a too-deep hop and the row
+          declines), which is exactly ``ans = allow = hit & ok_depth``.
+        * LM_NONE — tainted/dirty node, or unknown node with a reachable
+          rewrite: answer_checks declines, the device must not answer.
+
+        The dirty-set decline counter increments here with the same
+        coverage as answer_checks (all known rows at probe time).
+        """
+        n = len(nodes)
+        lmode = np.zeros(n, np.int32)
+        if n == 0:
+            return lmode
+        known = nodes >= 0
+        if self._rewrite_his:
+            rw = np.isin(
+                node_hi,
+                np.fromiter(
+                    self._rewrite_his, np.int64, len(self._rewrite_his)
+                ),
+            )
+        else:
+            rw = np.zeros(n, bool)
+        lmode[~known & ~rw] = LM_DENY
+        if known.any() and self.n_nodes:
+            kn = np.flatnonzero(known)
+            node_k = nodes[kn]
+            clean = ~self.tainted[node_k]
+            if self._d_taint or self.dirty:
+                bad = self._d_taint | self.dirty
+                clean &= ~np.isin(
+                    node_k, np.fromiter(bad, np.int64, len(bad))
+                )
+            if self.dirty:
+                darr = np.fromiter(self.dirty, np.int64, len(self.dirty))
+                self.fallbacks += int(np.isin(node_k, darr).sum())
+            mode_k = np.where(clean, LM_PROBE, LM_NONE).astype(np.int32)
+            if self._d_elt:
+                for j in np.flatnonzero(clean).tolist():
+                    dh = self._d_elt.get(
+                        (int(node_k[j]), int(subjects[kn[j]]))
+                    )
+                    if dh is not None:
+                        mode_k[j] = (
+                            LM_ALLOW
+                            if dh + DEPTH_SLACK <= rest_depth
+                            else LM_HIT_ONLY
+                        )
+            lmode[kn] = mode_k
+        return lmode
+
+    # ----------------------------------------------------- incremental
+
+    def apply_changes(self, changes: List[Tuple[int, RelationTuple]]) -> bool:
+        """Fold a changelog slice into the delta; False => rebuild me.
+
+        Additions append exact closure pairs; deletions mark the tuple's
+        node and all its ancestors dirty (overlay-exactness contract).
+        """
+        if self.n_nodes == 0 and changes:
+            return False
+        vocab_budget = self.rebuild_delta_pairs
+        for op, t in changes:
+            n = self._node_of_tuple(t)
+            if n < 0:
+                return False
+            if op < 0:
+                self._mark_dirty(n)
+                if len(self.dirty) > self.rebuild_dirty_sets:
+                    return False
+                continue
+            if not self._apply_add(n, t, vocab_budget):
+                return False
+            if len(self._d_elt) > vocab_budget:
+                return False
+        return True
+
+    def _node_of_tuple(self, t: RelationTuple) -> int:
+        v = self._vocab
+        if v is None:
+            return -1
+        nsc = v.namespaces.lookup(t.namespace)
+        objc = v.objects.lookup(t.object)
+        relc = v.relations.lookup(t.relation)
+        return self.node_id(nsc, objc, relc)
+
+    # the engine folds changes into TupleColumns (interning) before
+    # handing them to us, so the vocab is authoritative by then
+    _vocab = None
+
+    def bind_vocab(self, vocab) -> None:
+        self._vocab = vocab
+
+    def _mark_dirty(self, node: int) -> None:
+        for a in self._ancestors(node):
+            self.dirty.add(a)
+
+    def _apply_add(self, n: int, t: RelationTuple, budget: int) -> bool:
+        v = self._vocab
+        sid = v.subjects.lookup(t.subject.unique_id())
+        if sid < 0:
+            return False
+        anc = self._ancestors(n)
+        # width taint: the node's fanout may now cross the oracle's
+        # truncation threshold — taint it and everything reaching it
+        cnt = self._d_node_tuples.get(n, 0) + 1
+        self._d_node_tuples[n] = cnt
+        base_cnt = self._base_node_count(n)
+        if base_cnt + cnt >= self.max_width:
+            self._d_taint.update(anc)
+
+        # the tuple's subject is a direct member of n (and transitively
+        # of every ancestor)
+        if len(anc) > budget:
+            return False
+        for a, ha in anc.items():
+            self._put_elt(a, sid, ha)
+
+        if isinstance(t.subject, SubjectSet):
+            m = self.node_id(
+                v.namespaces.lookup(t.subject.namespace),
+                v.objects.lookup(t.subject.object),
+                v.relations.lookup(t.subject.relation),
+            )
+            if m < 0:
+                # edge into a node with no tuples: nothing reachable yet,
+                # but a later add there would arrive as an unknown-node
+                # change and force a rebuild — nothing to record now
+                return True
+            if m == n:
+                return True  # self-edge: no new reachability
+            # NOTE: m in anc (the edge closes a cycle) is NOT a no-op —
+            # n then gains m's whole closure.  Every genuinely new pair
+            # still factors as anc_old(n) x closure_old(m): a shortest
+            # path through the new edge uses it exactly once, so the
+            # product below covers cycles with no special casing (the
+            # _put_* min-hop guards drop the already-present pairs).
+            if self._is_tainted(m):
+                self._d_taint.update(anc)
+            desc = self._descendants(m)
+            elems = self._elements_of(m)
+            if len(anc) * (len(desc) + len(elems)) > 4 * budget:
+                return False
+            for a, ha in anc.items():
+                for d, hd in desc.items():
+                    self._put_set(a, d, ha + 1 + hd)
+                for e, he in elems.items():
+                    self._put_elt(a, e, ha + 1 + he)
+        return True
+
+    def _base_node_count(self, node: int) -> int:
+        key_lo = np.int64(node) << 32
+        lo = int(np.searchsorted(self.elt_packed, key_lo))
+        hi = int(np.searchsorted(self.elt_packed, key_lo + (1 << 32)))
+        # base elements at hop 0 are exactly the node's own tuples
+        return int((self.elt_hop[lo:hi] == 0).sum())
+
+    def _put_elt(self, s: int, e: int, h: int) -> None:
+        key = (s, e)
+        cur = self._d_elt.get(key)
+        if cur is not None and cur <= h:
+            return
+        # never shadow a base pair that already has an equal-or-better hop
+        if cur is None and len(self.elt_packed):
+            packed = np.int64(s) << 32 | np.int64(e)
+            pos = int(np.searchsorted(self.elt_packed, packed))
+            if (
+                pos < len(self.elt_packed)
+                and self.elt_packed[pos] == packed
+                and self.elt_hop[pos] <= h
+            ):
+                return
+        self._d_elt[key] = h
+        self._d_elt_by_set.setdefault(s, {})[e] = h
+        self._d_elt_by_e.setdefault(e, {})[s] = h
+
+    def _put_set(self, a: int, d: int, h: int) -> None:
+        if a == d:
+            return
+        cur = self._d_set_by_src.get(a, {}).get(d)
+        if cur is not None and cur <= h:
+            return
+        self._d_set_by_src.setdefault(a, {})[d] = h
+        self._d_set_by_dst.setdefault(d, {})[a] = h
+
+    # ------------------------------------------------------- enumeration
+
+    def list_elements(self, node: int) -> Optional[List[int]]:
+        """Element ids reachable from ``node``; None => caller must use
+        the host oracle (node dirty).  Unknown nodes are exactly empty."""
+        if node < 0:
+            return []
+        if node in self.dirty:
+            self.fallbacks += 1
+            return None
+        return sorted(self._elements_of(node).keys())
+
+    def list_sets_of(
+        self, elt: int, lo_node: int, hi_node: int
+    ) -> Optional[List[int]]:
+        """Node ids in [lo_node, hi_node) whose closure contains ``elt``;
+        None => a candidate is dirty and the host oracle must decide.
+
+        Deletions only shrink reachability, so nodes *outside* the
+        candidate set stay correct even while others are dirty — only a
+        dirty candidate forces the oracle.
+        """
+        if elt < 0:
+            return []
+        lo = int(np.searchsorted(self.relt_e, elt, side="left"))
+        hi = int(np.searchsorted(self.relt_e, elt, side="right"))
+        cand = set(self.relt_set[lo:hi].tolist())
+        cand.update(self._d_elt_by_e.get(elt, {}).keys())
+        cand = {c for c in cand if lo_node <= c < hi_node}
+        if self.dirty and cand & self.dirty:
+            self.fallbacks += 1
+            return None
+        return sorted(cand)
+
+    def node_obj(self, node: int) -> int:
+        """Object vocab id of a dense node id."""
+        return int(self.nodes[node] & 0xFFFFFFFF)

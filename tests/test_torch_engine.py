@@ -1,7 +1,8 @@
 """Port parity: ``ketotpu_torch.engine.device.DeviceCheckEngine`` (on the
 CPU, through the plain PyTorch versions) against the JAX package's
-``DeviceCheckEngine`` with the unfused cascade and Leopard off — the
-configuration the port serves — and against the JAX oracle.
+``DeviceCheckEngine`` with the unfused cascade and Leopard off, and
+against the JAX oracle (``tests/test_torch_fused.py`` holds the fused wave
+with Leopard on).
 
 Verdicts are exact on both sides (the BFS answers pure-OR rows, the
 algebra program AND/NOT rows, the host oracle what overflows both tiers'
@@ -62,7 +63,8 @@ def synth():
     tg = tsynth.build_synth_columnar(seed=0, **SMALL_SYNTH)
     jeng = JEngine(jg.store, jg.manager, fused_dispatch=False,
                    leopard={"enabled": False}, **JAX_CAPS)
-    teng = TEngine(tg.store, tg.manager, device="cpu")
+    teng = TEngine(tg.store, tg.manager, leopard={"enabled": False},
+                   device="cpu")
     return jg, tg, jeng, teng
 
 
@@ -202,7 +204,7 @@ def test_fixtures_match_jax_engine_and_oracle(case):
     js, jm, ts, tm, queries = _fixture_engines(case)
     jeng = JEngine(js, jm, fused_dispatch=False, leopard={"enabled": False},
                    **JAX_CAPS)
-    teng = TEngine(ts, tm, device="cpu")
+    teng = TEngine(ts, tm, leopard={"enabled": False}, device="cpu")
     oracle = JOracle(js, jm)
     jq = [JTuple.from_string(s) for s in queries]
     want = [oracle.check_is_member(q) for q in jq]

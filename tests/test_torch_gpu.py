@@ -7,7 +7,7 @@ imports JAX, which the port does not need; on a GPU machine without JAX:
     python -m pytest --noconftest -o addopts= -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 ``chip_smoke.py`` holds the same comparisons at the served shapes (first
-pass and retry) on the 10M-tuple graph.
+pass and retry, each fused wave shape) on the 10M-tuple graph.
 """
 
 import numpy as np
@@ -151,3 +151,120 @@ def test_engine_refuses_a_visited_set_past_shared_memory(engine):
     g, _eng = engine
     with pytest.raises(ValueError, match="visited set"):
         DeviceCheckEngine(g.store, g.manager, vcap=kernels.VISITED_SMEM_SLOTS)
+
+
+@pytest.mark.parametrize("n", [1, 700, 1024, 4096, 5000])
+def test_leo_probe_matches_its_plain_version(engine, n):
+    """K6 on the card against its plain version: present and absent pairs,
+    must-miss keys and keys above the last pair; at n == 1024 and 4096 the
+    pairs fill their bucket (the search's clamped midpoint)."""
+    from ketotpu_torch.leopard import device as leodev
+
+    rng = np.random.default_rng(n)
+    cap = leodev._pair_bucket(n)
+    keys = np.unique(rng.integers(0, 1 << 20, 4 * n) << 32
+                     | rng.integers(0, 1 << 16, 4 * n))[:n]
+    sets = np.full(cap, leodev._PAIR_PAD, np.int32)
+    elts = np.full(cap, leodev._PAIR_PAD, np.int32)
+    sets[:n], elts[:n] = keys >> 32, keys & 0x7FFFFFFF
+    hops = np.zeros(cap, np.int32)
+    hops[:n] = rng.integers(0, 12, n)
+    q = np.concatenate([keys[rng.integers(0, n, 3000)],
+                        rng.integers(0, 1 << 20, 3000) << 32,
+                        ((keys[-1] >> 32) + 1) << 32 | np.arange(500),
+                        np.full(300, -1, np.int64)])
+    q_set, q_elt = leodev.split_keys(q, len(q))
+    args = [torch.from_numpy(a).cuda() for a in (sets, elts, hops, q_set, q_elt)]
+    kernels.reset_launches()
+    hit, hop = leodev.probe(*args)
+    assert kernels.LAUNCHES["leo_probe"] == 1
+    phit, phop = leodev._probe_plain(*args)
+    assert torch.equal(hit, phit) and torch.equal(hop, phop)
+    assert bool(hit[:3000].all()) and not bool(hit[6000:].any())
+
+
+def test_unfused_short_chunk_probes_on_the_card(engine):
+    """The unfused cascade with Leopard on searches a chunk of any size on
+    the card: a chunk well under 2048 rows launches K6 once."""
+    g, _eng = engine
+    eng = DeviceCheckEngine(g.store, g.manager)
+    rows = chip_smoke.membership_queries(g, 43, 600, 300, 300)
+    assert len(rows) < 2048
+    eng.batch_check(rows)  # warm
+    kernels.reset_launches()
+    got = eng.batch_check(rows)
+    assert kernels.LAUNCHES["leo_probe"] == 1
+    assert eng.leopard_answered > 0
+    assert got == [eng.oracle.check_is_member(q) for q in rows]
+
+
+@pytest.fixture(scope="module")
+def fused_engine(engine):
+    """The fused engine, Leopard on, over the small synth graph."""
+    g, _eng = engine
+    return g, DeviceCheckEngine(g.store, g.manager, fused_dispatch=True)
+
+
+@pytest.mark.parametrize("traffic,depth,variant", [
+    ("mixed", 0, "served"), ("mixed", 2, "two-lanes"), ("mixed", 0, "modes"),
+    ("members", 0, "modes"),
+    ("members", 0, "served"), ("members", 1, "served"),
+    ("mixed", 0, "no-fast"), ("mixed", 0, "no-general"),
+    ("mixed", 0, "tier0-only"), ("mixed", 0, "no-pairs"), ("mixed", 0, "tiny"),
+])
+def test_every_wave_kernel_matches_its_plain_version(fused_engine, traffic,
+                                                     depth, variant):
+    """The fused wave's four kernels call by call against their plain
+    versions, and the whole int32 output against the plain wave
+    (tolerance 0): mixed and membership traffic, each tier absent in turn,
+    no pair columns, hand-set probe modes, two tier-1 lanes, and caps so
+    small that every retry lane takes rows."""
+    g, eng = fused_engine
+    if traffic == "mixed":
+        rows = synth_queries_mixed(g, 900, seed=31, general_frac=0.4)
+    else:
+        rows = chip_smoke.membership_queries(g, 37, 800, 400, 300)
+    plan = eng.plan_wave(rows, depth)
+    qpack, tables, kw = plan.qpack, plan.tables, dict(plan.kwargs)
+    if variant == "two-lanes":
+        kw["retry_lanes"] = 2
+    elif variant == "modes":
+        qpack = qpack.copy()
+        qpack[7] = np.random.default_rng(3).integers(0, 5, qpack.shape[1])
+    elif variant in ("no-fast", "tier0-only"):
+        kw.update(fast_sched=None, retry_sched=None, retry_lanes=0)
+    if variant in ("no-general", "tier0-only"):
+        kw.update(gen=None, gen_retry=None)
+    elif variant == "no-pairs":
+        tables = {k: v for k, v in tables.items() if not k.startswith("leo_")}
+    elif variant == "tiny":
+        tiny = DeviceCheckEngine(g.store, g.manager, fused_dispatch=True,
+                                 frontier=1024, arena=512, gen_arena=64)
+        plan = tiny.plan_wave(rows, depth)
+        qpack, tables, kw = plan.qpack, plan.tables, plan.kwargs
+    plan = plan._replace(tables=tables)
+    rec = chip_smoke.Recorder()
+    out = chip_smoke.check_wave(plan, rec, ("t", "wave"), qpack=qpack, kwargs=kw)
+    assert all(e == 0 for e in rec.err.values())
+    assert len(rec.calls["wave_tier0"]) == len(rec.calls["wave_pack"]) == 1
+    rows_out = out[: plan.n]
+    if variant == "tiny":
+        assert ((rows_out >> 8) & 1).any() and ((rows_out >> 9) & 1).any()
+    if traffic == "members" and depth == 0 and variant == "served":
+        assert ((rows_out >> 6) & 1).all()
+    if traffic == "members" and variant == "modes":
+        # hits within the budget: the LM_HIT_ONLY rows that hit answer
+        hit_only = qpack[7][: plan.n] == 4
+        assert ((rows_out >> 6) & 1)[hit_only].any()
+
+
+def test_fused_engine_on_the_card_matches_the_oracle(fused_engine):
+    g, eng = fused_engine
+    rows = synth_queries_mixed(g, 600, seed=5) + \
+        chip_smoke.membership_queries(g, 41, 300, 150, 150)
+    kernels.reset_launches()
+    got = eng.batch_check(rows)
+    assert got == [eng.oracle.check_is_member(q) for q in rows]
+    assert eng.leopard_answered > 0
+    assert eng.fused_waves == eng.fused_d2h_fetches
+    assert all(kernels.LAUNCHES[k] for k in chip_smoke.WAVE_KERNELS)

@@ -106,3 +106,32 @@ def test_general_program_on_cpu_launches_nothing():
         [RelationTuple.from_string(s) for s in ALGEBRA_BATCHES["andnot"]])
     assert any(got) and eng.general_rows > 0
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_fused_wave_and_leopard_on_cpu_launch_nothing(monkeypatch):
+    """Tier 0 and the fused wave take their plain versions for CPU
+    tensors: a fused engine with Leopard on, and the unfused one with the
+    device probe of a chunk (any size probes), count no launch."""
+    from ketotpu_torch.leopard import device as tleodev
+    from ketotpu_torch.utils.synth import build_synth_columnar, synth_queries_mixed
+    from torch_parity import SMALL_SYNTH
+
+    g = build_synth_columnar(seed=0, **SMALL_SYNTH)
+    rows = synth_queries_mixed(g, 300, seed=3)
+    kernels.reset_launches()
+    fused = tdevice.DeviceCheckEngine(g.store, g.manager, fused_dispatch=True,
+                                      device="cpu")
+    assert fused.batch_check(rows) and fused.fused_waves == 1
+    unfused = tdevice.DeviceCheckEngine(g.store, g.manager, device="cpu")
+    from ketotpu_torch.api.types import RelationTuple, SubjectID
+
+    probes = [RelationTuple("Group", g.groups[i % len(g.groups)], "members",
+                            SubjectID(g.users[i % len(g.users)]))
+              for i in range(300)]
+    probed = []
+    real_probe = tleodev.probe
+    monkeypatch.setattr(tleodev, "probe",
+                        lambda *a: probed.append(a) or real_probe(*a))
+    unfused.batch_check(probes)
+    assert unfused.leopard_answered == len(probes) and len(probed) == 1
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

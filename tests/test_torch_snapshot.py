@@ -85,7 +85,7 @@ def test_projection_matches_on_fixtures(case):
     assert np.array_equal(jsnap.taint, tsnap.taint)
     # the engines' own projections agree too
     jeng = JEngine(js, jm, leopard={"enabled": False})
-    teng = TEngine(ts, tm, device="cpu")
+    teng = TEngine(ts, tm, leopard={"enabled": False}, device="cpu")
     assert_same_arrays(jeng.snapshot().check_arrays(), teng.snapshot().check_arrays())
 
 
