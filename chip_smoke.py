@@ -68,7 +68,23 @@ Phases, in order; any failure raises and exits non-zero:
    and, where one PyTorch call computes the same function, that call;
    time one whole wave per fused path on the card, with and without its
    retry lanes; print the kernel JSON line, whose per-launch numbers are
-   weighted by the timed runs' launches at each shape.
+   weighted by the timed runs' launches at each shape;
+12. the write path on path A's engine (fused, Leopard on, the served
+   defaults; every check table carries the delta overlay, empty until the
+   first write): (a) memberships added to nested groups and base
+   memberships deleted, then the added ones removed; (b) a new Doc, a
+   virtual node; (c) a group nested in another, a dirty row; each served
+   by the overlay with no re-projection; (d) a burst of 4,200 memberships,
+   past the overlay's 4,096 pairs, folded into the base with the device
+   shapes unchanged.  After each write one ``batch_check`` of the rows it
+   touched plus 256 sampled rows, every verdict against the oracle, the
+   tier and the closure index's outcome (apply or rebuild) against the
+   expected ones, the write-to-verdict wall split into its steps, and on
+   the tables that check read every tier-1, tier-2 and wave kernel held
+   against its plain version (the overlay's branches and dirty bits);
+   then the ``ov_dirty`` upload, a full re-projection plus closure build
+   for comparison, and the overlay kernels timed on (c)'s tables (the
+   kernel line's ``overlay_path``).
 
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
@@ -326,9 +342,10 @@ def check_kernels(g, qpack, sched, max_width, rec: Recorder, tag=None):
     occ = torch.zeros(levels, dtype=torch.int32, device=dev)
     f, qf, qo, qs = rec.run("init_state", qp, frontier=sched[0][0],
                             levels=levels, occ_out=occ[0:1])
+    qd = torch.zeros_like(qo)
     for i, (_fl, a) in enumerate(sched):
         last = i == levels - 1
-        qf2, lv = rec.run("probe_level", g, f, qf, qs, probe_only=last)
+        qf2, qd, lv = rec.run("probe_level", g, f, qf, qd, qs, probe_only=last)
         if last:
             qf = qf2
             break
@@ -339,7 +356,7 @@ def check_kernels(g, qpack, sched, max_width, rec: Recorder, tag=None):
                         nsb=nsb, relb=relb, occ_out=occ[i + 1:i + 2])
         qf = qf2
     out = torch.empty(qp.shape[1], dtype=torch.uint8, device=dev)
-    rec.run("pack_verdicts", qf, qo, out=out)
+    rec.run("pack_verdicts", qf, qo, qd, out=out)
     return out.cpu().numpy(), occ.cpu().numpy()
 
 
@@ -494,7 +511,7 @@ def replay_general(engine, g, chunk, rec: Recorder, dataset: str):
     allowed = res == 1
     unres = over & ~dirty & (res != 3)
     stats.update(shape=shape_name(key), allowed=int(allowed.sum()),
-                 over=int(over.sum()))
+                 over=int(over.sum()), dirty=int(dirty.sum()))
     rs = engine.retry_scale
     if unres.any():
         ri = np.flatnonzero(unres)
@@ -951,27 +968,33 @@ def kernel_bytes(name, args, kw, g) -> int:
     each output written once, and for the table probes only the entries
     this call's data gathers (per hash probe one bucket pointer, one key
     pair and the payload; per CSR row its two row pointers; per edge child
-    its packed edge word and object).  A K7 call counts from the state it
-    found; the small program and routing tables (kilobytes, L2-resident)
-    are left out."""
+    its packed edge word and object).  With the delta overlay in the
+    tables, every membership probe also probes the ``om_`` table and every
+    row degree read reads its ``ov_dirty`` byte; the ``ovt_`` probe of a
+    node the base lacks is left out (a lower bound).  A K7 call counts
+    from the state it found; the small program and routing tables
+    (kilobytes, L2-resident) are left out."""
     from ketotpu_torch.engine import algebra as alg
 
     kc, kt = g["f_css_rel"].shape[2], g["f_ttu_via"].shape[2]
     s = 1 + kc + kt
     item = 5 * 4 + 2  # five int32 columns + two bool columns
+    ov = "om_ptr" in g  # the overlay: one more probe per membership probe
+    mem = 12 + (16 if ov else 0)  # bytes per membership probe
+    deg = 8 + (1 if ov else 0)  # bytes per row degree read
     if name == "init_state":
         q = args[0].shape[1]
         return 6 * 4 * q + item * kw["frontier"] + 2 * 4 * q + 4
     if name == "probe_level":
-        _g, f, qf, _qs = args
+        _g, f, qf, _qd, _qs = args
         n, nq = f.qid.shape[0], qf.shape[0]
         live = int(((f.qid >= 0) & (qf[f.qid.clamp(0, nq - 1).long()] == 0)).sum())
-        b = item * n + 2 * 4 * nq  # frontier + found bits in and out
+        b = item * n + 4 * 4 * nq  # frontier + found, dirty bits in and out
         b += 16 * n + 4 * n  # node probe + node column out
-        b += 8 * live + 12 * live * (1 + kc)  # query gathers + member probes
+        b += 8 * live + mem * live * (1 + kc)  # query gathers + member probes
         b += 16 * live * kc  # css node probes
         if not kw["probe_only"]:
-            b += 16 * n * kt + 8 * live * (1 + kt)  # ttu probes + row degrees
+            b += 16 * n * kt + deg * live * (1 + kt)  # ttu probes + degrees
             b += 4 * n * (2 + kt + s)  # exp_deg, counts, ttu_node, seg_cum out
         return b
     if name == "arena_assign":
@@ -995,7 +1018,7 @@ def kernel_bytes(name, args, kw, g) -> int:
         return b
     if name == "pack_verdicts":
         nq = args[0].shape[0]
-        return 2 * 4 * nq + nq
+        return 3 * 4 * nq + nq
     if name == "leo_probe":
         sets, elts, _hops, q_set, q_elt = args
         return search_bytes(sets, elts, q_set, q_elt) + 8 * q_set.shape[0]
@@ -1012,10 +1035,11 @@ def kernel_bytes(name, args, kw, g) -> int:
             b += 4 * q + 4 * q  # the fast-eligible row in, tier 1's row out
         return b
     if name == "wave_lane":
-        act, _pf, _po, found, retried = args
+        act, _pf, _po, _pd, found, retried, fb = args
         q = act.shape[0]
-        b = 3 * 4 * q + 3 * 4 * q  # act, found and over bits in; 3 masks out
-        b += 4 * q * ((found is not None) + (retried is not None))
+        b = 4 * 4 * q + 4 * 4 * q  # act, found, over, dirty in; 4 masks out
+        b += 4 * q * ((found is not None) + (retried is not None)
+                      + (fb is not None))
         return b
     if name == "wave_gen_lane":
         q = args[0].shape[0]
@@ -1048,7 +1072,7 @@ def kernel_bytes(name, args, kw, g) -> int:
             # and ten aux columns out
             live = _level_live(st, level)
             b = n * 4 * (9 + 18)
-        b += live * (4 + 16 + 12 + 8 + 16) + 4  # subject, probes, degree, occ
+        b += live * (4 + 16 + mem + deg + 16) + 4  # subject, probes, degree, occ
         return b
     if name == "gen_construct":
         level, par = args[2], args[4]
@@ -1088,12 +1112,12 @@ def kernel_bytes(name, args, kw, g) -> int:
         lo, n = st.span(level)
         # thirteen columns in (qid, fast_id, res, resolved, d, three counts,
         # cop, nchild, seed, neg, parent), res and resolved out, per leaf
-        # its found and over bits; the parents that receive a count get
-        # their three count columns written
+        # its found, over and dirty bits; the parents that receive a count
+        # get their three count columns written
         leaves = int((t[alg.TI["fast_id"], lo:lo + n] >= 0).sum())
         par = t[alg.TI["parent"], lo:lo + n][t[alg.TI["qid"], lo:lo + n] >= 0]
         touched = int(torch.unique(par).numel()) if level else 0
-        return n * 4 * (13 + 2) + leaves * 8 + touched * 12
+        return n * 4 * (13 + 2) + leaves * 12 + touched * 12
     if name == "gen_pack":
         return st.q * (4 + 4 + 4 + 1)
     raise KeyError(name)
@@ -1481,6 +1505,274 @@ def fused_paths(graph, rec: Recorder, mixed_q, mout, engine):
         b_replay=b_replay, a=(a_dt, a_launch, a_shapes, a_phases, a_by_shape),
         b=(b_dt, b_launch, b_shapes, b_phases, b_by_shape), c_launch=c_launch,
         c_shapes=c_shapes)
+
+
+# -- phase 12: writes served in O(delta) -----------------------------------------
+
+WRITE_PAIRS = 16  # memberships added, and base memberships deleted, in (a)
+WRITE_BURST = 4200  # membership writes of (d): past the overlay's 4,096 pairs
+WRITE_SAMPLE = 256  # sampled rows checked against the oracle after each write
+SEED_WRITES = 37
+#: the kernels that read the overlay's tables or bits
+OVERLAY_KERNELS = ("probe_level", "pack_verdicts", "gen_classify", "wave_lane")
+
+
+def write_script(graph, rng):
+    """The write batches, each with the check rows that touch what it
+    wrote, the tier the write path must take and the closure index's
+    outcome: (a1) memberships added to nested groups and base memberships
+    deleted, (a2) the added ones removed, (b) a new Doc (a virtual node,
+    a dirty one through its parents edge), (c) a group nested in another
+    (a dirty row), (d) a burst past the overlay's capacity.  Yields one
+    batch at a time (a later batch reads the graph an earlier one wrote)."""
+    from ketotpu_torch.api.types import RelationTuple
+
+    T = RelationTuple.from_string
+    store = graph.store
+    cols, alive, _tail, _head = store.export_columns()
+    v = store.vocab
+    alive = np.asarray(alive, bool)
+    objs = v.objects.strings()
+    n_groups, n_users = len(graph.groups), len(graph.users)
+
+    def members(g_idx, k):
+        """k direct members of group g_idx (user i is in group i % G)."""
+        return [f"u{g_idx + n_groups * j}" for j in range(k)
+                if g_idx + n_groups * j < n_users]
+
+    def viewer_folders(g_idx):
+        m = (alive & (cols["ns"] == v.namespaces.lookup("Folder"))
+             & (cols["rel"] == v.relations.lookup("viewers"))
+             & (cols["is_set"] == 1) & (cols["s_obj"] == v.objects.lookup(
+                 f"g{g_idx}")))
+        return [objs[o] for o in cols["obj"][m][:2]]
+
+    def docs_under(folder, k):
+        m = (alive & (cols["ns"] == v.namespaces.lookup("Doc"))
+             & (cols["rel"] == v.relations.lookup("parents"))
+             & (cols["s_obj"] == v.objects.lookup(folder)))
+        return [objs[o] for o in cols["obj"][m][:k]]
+
+    # (a1) nested children g(3k+1): their parent g(3k) sees the new member
+    kids = 1 + 3 * rng.choice((n_groups - 1) // 3, WRITE_PAIRS, replace=False)
+    added = []
+    rows = []
+    for x in kids.tolist():
+        y = int(rng.integers(n_users))
+        if y % n_groups == x:
+            y = (y + 1) % n_users
+        added.append(f"Group:g{x}#members@u{y}")
+        rows += [f"Group:g{x}#members@u{y}", f"Group:g{x - 1}#members@u{y}"]
+        rows += [f"Folder:{f}#view@u{y}" for f in viewer_folders(x)]
+    gone = []
+    for i in rng.choice(n_users, WRITE_PAIRS, replace=False).tolist():
+        gone.append(f"Group:g{i % n_groups}#members@u{i}")
+        rows.append(gone[-1])
+        if i % n_groups % 3 == 1:
+            rows.append(f"Group:g{i % n_groups - 1}#members@u{i}")
+    yield ("a1", [T(t) for t in added], [T(t) for t in gone], rows,
+           "overlay", "apply")
+    yield ("a2", [], [T(t) for t in added], rows, "overlay", "apply")
+    # (b) a new object: a virtual node through ovt_; its parents edge makes
+    # it dirty as well
+    doc = f"dnew{int(rng.integers(1 << 30))}"
+    users = [f"u{int(u)}" for u in rng.choice(n_users, 4, replace=False)]
+    folder = graph.folders[int(rng.integers(len(graph.folders)))]
+    new = [f"Doc:{doc}#viewers@{users[0]}", f"Doc:{doc}#owners@{users[1]}",
+           f"Doc:{doc}#parents@Folder:{folder}"]
+    rows = [f"Doc:{doc}#{rel}@{u}" for u in users
+            for rel in ("viewers", "owners", "view", "edit")]
+    yield ("b", [T(t) for t in new], [], rows, "overlay", "rebuild")
+    # (c) nest g(b) in a group g(a) that views a folder: g(a)'s row is dirty
+    m = (alive & (cols["ns"] == v.namespaces.lookup("Folder"))
+         & (cols["rel"] == v.relations.lookup("viewers"))
+         & (cols["is_set"] == 1))
+    pick = int(rng.choice(np.flatnonzero(m)))
+    folder, ga = objs[cols["obj"][pick]], objs[cols["s_obj"][pick]]
+    gb = int(rng.integers(n_groups))
+    if f"g{gb}" == ga:
+        gb = (gb + 1) % n_groups
+    us = members(gb, 8)
+    rows = [f"Group:{ga}#members@{u}" for u in us]
+    rows += [f"Folder:{folder}#view@{u}" for u in us]
+    rows += [f"Doc:{d}#{rel}@{u}" for d in docs_under(folder, 4) for u in us
+             for rel in ("view", "edit")]
+    yield ("c", [T(f"Group:{ga}#members@Group:g{gb}#members")], [], rows,
+           "overlay", "apply")
+    # (d) a burst of new memberships: the overlay overflows, the changes
+    # since the base fold into it
+    burst = set()
+    while len(burst) < WRITE_BURST:
+        x, y = int(rng.integers(n_groups)), int(rng.integers(n_users))
+        if y % n_groups != x:
+            burst.add(f"Group:g{x}#members@u{y}")
+    burst = sorted(burst)
+    yield ("d", [T(t) for t in burst], [], burst, "fold", None)
+
+
+def write_phase(graph, leng, samples, rec: Recorder):
+    """Phase 12: the write batches of :func:`write_script` on the fused
+    engine with Leopard on, each followed by one ``batch_check`` of the
+    rows it touched plus sampled rows: every verdict against the oracle,
+    the tier and the closure outcome against the expected ones, the write
+    to next verdict wall split into its steps, the launches of that check,
+    and, on the tables the check read, every tier-1 kernel (the probe's
+    overlay branches and the dirty bit of the verdict byte), every tier-2
+    kernel and every wave kernel held against its plain version.  Then the
+    ``ov_dirty`` upload, and a full re-projection plus closure build for
+    comparison.  Returns what the kernel line reads."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.api.types import RelationTuple
+    from ketotpu_torch.engine import delta as dl
+    from ketotpu_torch.engine.device import upload
+    from ketotpu_torch.engine.oracle import CheckEngine
+
+    rng = np.random.default_rng(SEED_WRITES)
+    store = graph.store
+    oracle = CheckEngine(store, graph.manager)
+    report = {}
+    c_tables = None  # batch c's tables: the overlay kernels are timed there
+    for name, ins, dels, rows, tier, leo_want in write_script(graph, rng):
+        if leo_want is None:
+            # the burst's delta pairs (at least one per new membership)
+            # pass the closure index's budget: it rebuilds, as in JAX
+            budget = leng._leo.index.rebuild_delta_pairs
+            leo_want = "rebuild" if len(ins) > budget else "apply"
+        rows = [RelationTuple.from_string(r) for r in rows]
+        sample = [samples[i] for i in rng.choice(len(samples), WRITE_SAMPLE,
+                                                 replace=False)]
+        checks = rows + sample
+        before = {k: getattr(leng, k) for k in (
+            "rebuilds", "overlay_applies", "folds", "fallbacks")}
+        shapes0 = leng._array_shapes(leng._device_arrays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.transact_relation_tuples(insert=ins, delete=dels)
+        t1 = time.perf_counter()
+        kernels.reset_launches()
+        out = leng.batch_check(checks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(kernels.LAUNCHES)
+        w = dict(leng.last_write)
+        moved = {k: getattr(leng, k) - v for k, v in before.items()}
+        want = [oracle.check_is_member(q) for q in checks]
+        if out != want:
+            bad = [str(q) for q, a, b in zip(checks, out, want) if a != b][:4]
+            raise AssertionError(f"write batch {name}: verdicts != oracle {bad}")
+        if (w.get("tier"), w.get("leopard")) != (tier, leo_want):
+            raise AssertionError(f"write batch {name}: tier {w.get('tier')}, "
+                                 f"closure {w.get('leopard')}; expected "
+                                 f"{tier}, {leo_want}")
+        if moved["rebuilds"]:
+            raise AssertionError(f"write batch {name} re-projected the store")
+        if tier == "fold" and (moved["folds"] != 1 or leng._array_shapes(
+                leng._device_arrays) != shapes0):
+            raise AssertionError(f"write batch {name}: folds {moved['folds']}, "
+                                 "device shapes changed")
+        require_launched(launches, ("wave_tier0", "wave_lane", "wave_pack",
+                                    *WAVE_FAST_KERNELS), f"write batch {name}")
+        # the tables this check read (the overlay non-empty before the
+        # fold of d, then d's base tables spliced in place), every kernel
+        # held against its plain version on them: the tier-1 pass (its
+        # dirty bits counted), the general rows and the waves
+        g = leng.device_tables()
+        tag = f"writes-{name}"
+        qpack, err, general = leng.pack_queries(checks)
+        shape = (qpack.shape[1], leng.frontier, leng.arena, 1)
+        codes, _occ = check_kernels(g, qpack, schedule(shape, leng.max_depth),
+                                    leng.max_width, rec, (tag, shape))
+        codes = codes[: len(checks)]
+        unfound = ~(err | general) & ((codes & 1) == 0)
+        dirty = int((((codes >> 2) & 1) == 1)[unfound].sum())
+        _gi, _ga, _gfb, gstats = replay_general(leng, g, checks, rec,
+                                                tag + "-gen")
+        gdirty = gstats.get("dirty", 0)
+        wreplay = replay_waves(leng, checks, rec, tag + "-fused")
+        w_allowed = np.concatenate([a for _p, _o, a, _f in wreplay])
+        w_fb = np.concatenate([f for _p, _o, _a, f in wreplay])
+        if (w_allowed[~w_fb] != np.asarray(out)[~w_fb]).any():
+            raise AssertionError(f"write batch {name}: batch_check != the "
+                                 "wave replay")
+        if name == "c":
+            if not (dirty and gstats["general"]):
+                raise AssertionError("batch c: no dirty tier-1 row or no "
+                                     "general row to hold the overlay's "
+                                     "branches")
+            c_tables = (g, leng.leopard_index().tables, tag)
+        total = t2 - t0
+        check_s = (t2 - t1) - w.get("total_s", 0.0)
+        report[name] = dict(
+            inserts=len(ins), deletes=len(dels), rows=len(checks),
+            touched_rows=len(rows), tier=w.get("tier"),
+            leopard=w.get("leopard"),
+            write_to_verdict_ms=round(total * 1e3, 3),
+            store_write_ms=round((t1 - t0) * 1e3, 3),
+            drain_ms=round((w.get("drain_s", 0.0) + w.get("leopard_s", 0.0))
+                           * 1e3, 3),
+            closure_ms=round(w.get("leopard_s", 0.0) * 1e3, 3),
+            build_ms=round(w.get("build_s", 0.0) * 1e3, 3),
+            upload_ms=round(w.get("upload_s", 0.0) * 1e3, 3),
+            check_ms=round(check_s * 1e3, 3),
+            dirty_rows=dirty, general_dirty_rows=gdirty,
+            fallbacks=moved["fallbacks"], allowed=int(sum(out)),
+            launches={k: c for k, c in launches.items() if c},
+            overlay=leng.projection_stats()["overlay_pairs"],
+            fold_phases_ms=({k: round(v * 1e3, 3)
+                             for k, v in leng.last_build_phases.items()}
+                            if tier == "fold" else None),
+        )
+        log(f"[12] write batch {name}: {json.dumps(report[name])}")
+    # the overlay's upload: ov_dirty alone, and the whole overlay, re-shipped
+    # as the engine ships it after a write (median of 5, synchronized)
+    ov = dl.overlay_arrays(leng._overlay, leng._snap,
+                           pair_cap=leng.max_overlay_pairs)
+    up = {}
+    for label, arrays in (("ov_dirty", {"ov_dirty": ov["ov_dirty"]}),
+                          ("overlay", ov)):
+        per = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            upload(arrays, leng.device)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) * 1e3)
+        up[label] = round(float(np.median(per)), 3)
+    # a full re-projection plus closure build of the same store, for
+    # comparison with the writes above
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leng.refresh()
+    torch.cuda.synchronize()
+    full = dict(wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                projection_ms=round(leng.projection_build_s * 1e3, 3),
+                upload_ms=round(leng.projection_upload_s * 1e3, 3),
+                closure_ms=round(leng.leopard_index().index.build_s * 1e3, 3))
+    log(f"[12] ov_dirty ({ov['ov_dirty'].shape[0]} bools) upload "
+        f"{up['ov_dirty']} ms, the whole overlay {up['overlay']} ms; a full "
+        f"re-projection + closure build of the written store: {json.dumps(full)}")
+    for k in OVERLAY_KERNELS:
+        n = sum(1 for t, _a, _k in rec.calls[k] if t and t[0].startswith("writes"))
+        log(f"[12] {k}: {n} calls on the written tables, kernel == plain (max "
+            f"abs err {rec.err[k]})")
+    # the overlay kernels timed on batch c's tables (added, deleted and
+    # virtual entries, dirty rows)
+    g_c, lg_c, tag = c_tables
+    timed_ov = {}
+    for ds, names, tables in ((tag, ("probe_level", "pack_verdicts"), g_c),
+                              (tag + "-gen", ("gen_classify",), g_c),
+                              (tag + "-fused", ("wave_lane",), lg_c)):
+        for k, per in time_kernels(tables, rec, ds, names).items():
+            n = sum(r["calls"] for r in per.values())
+            timed_ov[k] = {key: sum(r[key] * r["calls"] for r in per.values()) / n
+                           for key in ("ms", "plain_ms", "bound_ms")}
+            timed_ov[k]["calls"] = n
+            log(f"[12] {k} with batch c's overlay: {timed_ov[k]['ms']:.4f} "
+                f"ms/launch on the card, plain {timed_ov[k]['plain_ms']:.4f} ms, "
+                f"bound {timed_ov[k]['bound_ms']:.6f} ms (bytes), mean of {n} "
+                f"calls")
+    return SimpleNamespace(report=report, upload_ms=up, full=full,
+                           timed=timed_ov)
 
 
 def main() -> int:
@@ -2000,7 +2292,15 @@ def main() -> int:
     log(f"[11] where the timed mixed batch went: {mdt * 1e3:.3f} ms wall; kernels "
         f"{mbusy:.3f} ms, derived the same way, a derived device busy share of "
         f"{mbusy / (mdt * 1e3):.4f}; host phases {mphases} ms")
-    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
+
+    # -- 12. writes --------------------------------------------------------------
+    t0 = time.perf_counter()
+    wr = write_phase(graph, leng, memb + list(mixed_q), rec)
+    for entry in line:
+        if entry["name"] in wr.timed:
+            entry["overlay_path"] = wr.timed[entry["name"]]
+    log(f"[12] write phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@
 // _fast_subrun) launches the tier-1 kernels of probe.cu, arena.cu,
 // children.cu and pack.cu as they are.  Plain versions: the _gen_*_plain
 // functions of engine/algebra.py, which reuse the JAX-shaped functions.
+// The delta overlay's branches (common.cuh) come in through the probes,
+// the degrees of :129 _deg_guarded (dirty and virtual rows read as 0
+// edges, the task's dirt bit raised) and the sub-run's dirty leaves
+// (:839), which set the query's code bit 3.
 //
 // Bound: bytes, and at this slice's sizes launch latency.  Per task,
 // classification reads the task's columns and gathers a node probe, a
@@ -166,8 +170,10 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
                          member(g, node, subj);
         const bool seed = is_check && mem && (force || (dok && d >= 2));
         const bool exp_read = (is_check || is_fast) && eok && d >= 2;
-        const int32_t deg = exp_read ? row_deg(g, node) : 0;
-        bool dirt = false;  // no delta overlay: _node_dirty is constant false
+        // _deg_guarded: dirty and virtual rows read as 0 edges
+        bool node_nd = false;
+        const int32_t deg = exp_read ? row_deg_ov(g, node, &node_nd) : 0;
+        bool dirt = exp_read && node_nd;
         const bool errable = cfg && p.err_reach[nr] != 0;
         const int32_t chk_count = d >= 1 ? (has_rw ? 1 : 0) + deg : 0;
         const bool triv = is_fast && !has_rw && deg == 0;
@@ -186,7 +192,8 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
         const int32_t p_deg = p.p_child_ptr[pp + 1] - p.p_child_ptr[pp];
         const int32_t pa = p.p_a[pp];
         const int32_t node_ttu = node_lookup(g, ns, obj, pa);
-        const int32_t ttu_deg = is_prog ? row_deg(g, node_ttu) : 0;
+        bool ttu_nd = false;
+        const int32_t ttu_deg = is_prog ? row_deg_ov(g, node_ttu, &ttu_nd) : 0;
         const int32_t browc = clampi(pa, 0, p.n_bptr - 2);
         const int32_t b_deg = p.b_ptr[browc + 1] - p.b_ptr[browc];
         const bool p_oan = is_prog && (pk == P_OR || pk == P_AND);
@@ -194,6 +201,7 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
         const bool p_css = is_prog && pk == P_CSS;
         const bool p_ttu = is_prog && pk == P_TTU;
         const bool p_bat = is_prog && pk == P_BATCHCSS;
+        dirt = dirt || (p_ttu && ttu_nd);
 
         // depth guards: <=0 for check/or/and, <0 for NOT/CSS/TTU
         const bool guard = ((is_check || p_oan) && d <= 0) ||
@@ -564,7 +572,8 @@ __global__ void k_gen_leaf_emit(GenState st, const int32_t* __restrict__ q_subj,
 __global__ void k_gen_up(GenState st, int32_t lo, int32_t n, int32_t level,
                          int32_t plo, int32_t pn,
                          const int32_t* __restrict__ found,
-                         const int32_t* __restrict__ fover) {
+                         const int32_t* __restrict__ fover,
+                         const int32_t* __restrict__ fdirty) {
     const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const int32_t c = lo + i;
@@ -580,6 +589,9 @@ __global__ void k_gen_up(GenState st, int32_t lo, int32_t n, int32_t level,
         res = found[fc] != 0 ? R_IS : (d >= 1 ? R_NOT : R_UNKNOWN);
         resolved = true;
         if (fover[fc] != 0) atomicOr(&st.q_over[clampi(qid, 0, st.q - 1)], 1);
+        // an unfound leaf whose sub-run needed a dirty row: host oracle
+        if (fdirty[fc] != 0 && found[fc] == 0)
+            atomicOr(&st.q_dirty[clampi(qid, 0, st.q - 1)], 1);
     }
     if (level < st.depth && qid >= 0 && !resolved) {
         const int32_t nis = st.cnt[c];
@@ -673,9 +685,10 @@ KT_EXPORT int gen_collect(GenState st, const int32_t* q_subj, int32_t* m,
 
 KT_EXPORT int gen_up(GenState st, int32_t lo, int32_t n, int32_t level,
                      int32_t plo, int32_t pn, const int32_t* found,
-                     const int32_t* fover, cudaStream_t stream) {
+                     const int32_t* fover, const int32_t* fdirty,
+                     cudaStream_t stream) {
     k_gen_up<<<kt_blocks(n, kThreads), kThreads, 0, stream>>>(
-        st, lo, n, level, plo, pn, found, fover);
+        st, lo, n, level, plo, pn, found, fover, fdirty);
     return (int)cudaGetLastError();
 }
 

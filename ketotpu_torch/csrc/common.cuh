@@ -4,7 +4,12 @@
 //
 // Replaces, as inlined device functions, the JAX package's
 // engine/hashtab.py:81 mix_device and :445 lookup (K1) and
-// engine/fastpath.py:114 _node_lookup, :134 _member, :157 _row_deg (K2).
+// engine/fastpath.py:114 _node_lookup, :134 _member, :149 _node_dirty,
+// :157 _row_deg (K2), with the delta overlay's branches: virtual node ids
+// through the ovt_ table, membership as base OR added AND NOT deleted
+// through om_, the ov_dirty bitset, and the zeroed rows of dirty and
+// virtual nodes (fastpath.py:282-288, :305-308; algebra.py:129
+// _deg_guarded).
 // Every load here is a dependent random gather into a table far larger
 // than L2 at the 10M-tuple scale, so each probe costs one DRAM round trip
 // per round; the probe loop stops at the first hit and issues the payload
@@ -26,7 +31,8 @@ struct HashTab {
 };
 
 // The device snapshot tables the pure-OR BFS reads (Snapshot.check_arrays
-// names in the comments).
+// names in the comments), and the delta overlay over them
+// (delta.overlay_arrays names; has_ov == 0 when the tables carry none).
 struct Graph {
     HashTab nt;                 // nt_*: (ns * R + rel, obj) -> node id
     HashTab mt;                 // mt_*: (node, subject) membership set
@@ -43,7 +49,16 @@ struct Graph {
     const int32_t* edge_obj;    // [n_edges]
     int32_t ns_dim, rel_dim, kc, kt;
     int32_t n_row_ptr, n_edges;
+    HashTab om;                 // om_*: (node, subject) -> OV_ADDED / OV_DELETED
+    HashTab ovt;                // ovt_*: (ns * R + rel, obj) -> virtual node id
+    const uint8_t* ov_dirty;    // [n_dirty] edge list changed since the base
+    const int32_t* ov_nbase;    // [1] base node count: ids >= it are virtual
+    int32_t n_dirty, has_ov;
 };
+
+// delta.py OV_ADDED / OV_DELETED: the om_ table's payload codes
+#define OV_ADDED 1
+#define OV_DELETED 2
 
 // One frontier (or arena of children): seven columns of equal length.
 struct Items {
@@ -100,22 +115,44 @@ __device__ __forceinline__ int32_t tab_lookup(const HashTab& t, int32_t a,
     return t.val != nullptr ? t.val[hit_j] : hit_j;
 }
 
-// fastpath._node_lookup: (ns, obj, rel) -> node id or -1.
+// fastpath._node_lookup: (ns, obj, rel) -> node id or -1; a node the base
+// lacks resolves to its virtual id through the overlay's ovt_ table (the
+// JAX select keeps the base id otherwise, so the probe is skipped there).
 __device__ __forceinline__ int32_t node_lookup(const Graph& g, int32_t ns,
                                                int32_t obj, int32_t rel) {
     bool ok = (ns >= 0) & (obj >= 0) & (rel >= 0);
     int32_t hi = ns * g.rel_dim + rel;
     bool found;
     int32_t v = tab_lookup(g.nt, hi, obj, &found);
-    return (found && ok) ? v : -1;
+    found = found && ok;
+    int32_t res = found ? v : -1;
+    if (g.has_ov && ok && !found) {
+        bool vfound;
+        int32_t vid = tab_lookup(g.ovt, hi, obj, &vfound);
+        if (vfound) res = vid;
+    }
+    return res;
 }
 
-// fastpath._member: does tuple (node, subject) exist?
+// fastpath._member: does tuple (node, subject) exist?  Overlay-exact: base
+// OR added since the base AND NOT deleted since it.
 __device__ __forceinline__ bool member(const Graph& g, int32_t node,
                                        int32_t subj) {
     bool found;
     tab_lookup(g.mt, node, subj, &found);
+    if (g.has_ov) {
+        bool vf;
+        int32_t v = tab_lookup(g.om, node, subj, &vf);
+        found = (found || (vf && v == OV_ADDED)) && !(vf && v == OV_DELETED);
+    }
     return found;
+}
+
+// fastpath._node_dirty: did the node's subject-set edge list change since
+// the base?  The read clamps into the bitset as the JAX gather does.
+__device__ __forceinline__ bool node_dirty(const Graph& g, int32_t node) {
+    if (!g.has_ov || node < 0) return false;
+    return g.ov_dirty[clampi(node, 0, g.n_dirty - 1)] != 0;
 }
 
 // fastpath._row_deg: subject-set CSR row degree, 0 for node < 0.
@@ -123,6 +160,17 @@ __device__ __forceinline__ int32_t row_deg(const Graph& g, int32_t node) {
     int32_t safe = clampi(node, 0, g.n_row_ptr - 2);
     int32_t deg = g.row_ptr[safe + 1] - g.row_ptr[safe];
     return node >= 0 ? deg : 0;
+}
+
+// The row degree with the overlay's rows zeroed (fastpath._overlay_deg,
+// algebra._deg_guarded): a dirty row's base edges are stale and a virtual
+// node has no base row.  *dirty receives node_dirty.
+__device__ __forceinline__ int32_t row_deg_ov(const Graph& g, int32_t node,
+                                              bool* dirty) {
+    int32_t deg = row_deg(g, node);
+    *dirty = node_dirty(g, node);
+    if (g.has_ov && (*dirty || node >= *g.ov_nbase)) deg = 0;
+    return deg;
 }
 
 // Each entry point returns cudaGetLastError() after its launches, so the

@@ -211,20 +211,24 @@ KT_EXPORT int init_state(const int32_t* qpack, const int32_t* act, int32_t nq,
     return (int)cudaGetLastError();
 }
 
-// The verdict byte per query: bit0 found, bit1 over (bit2, dirty, needs
-// the write overlay and stays 0).
+// The verdict byte per query (_run_fused_packed :711-724): bit0 found,
+// bit1 over, bit2 dirty (an expansion needed a row the overlay marked
+// stale).
 __global__ void pack_verdict_bytes(const int32_t* __restrict__ q_found,
-                                   const int32_t* __restrict__ q_over, int32_t nq,
-                                   uint8_t* __restrict__ out) {
+                                   const int32_t* __restrict__ q_over,
+                                   const int32_t* __restrict__ q_dirty,
+                                   int32_t nq, uint8_t* __restrict__ out) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= nq) return;
-    out[i] = (uint8_t)((q_found[i] != 0) | ((q_over[i] != 0) << 1));
+    out[i] = (uint8_t)((q_found[i] != 0) | ((q_over[i] != 0) << 1) |
+                       ((q_dirty[i] != 0) << 2));
 }
 
 KT_EXPORT int pack_verdicts(const int32_t* q_found, const int32_t* q_over,
-                            int32_t nq, uint8_t* out, cudaStream_t stream) {
+                            const int32_t* q_dirty, int32_t nq, uint8_t* out,
+                            cudaStream_t stream) {
     const int threads = 256;
     pack_verdict_bytes<<<kt_blocks(nq, threads), threads, 0, stream>>>(
-        q_found, q_over, nq, out);
+        q_found, q_over, q_dirty, nq, out);
     return (int)cudaGetLastError();
 }

@@ -3,8 +3,11 @@
 //
 // Replaces the probe half of the JAX package's engine/fastpath.py:204
 // expand_phase, with hashtab.py:445 lookup / :81 mix_device and
-// fastpath.py:114 _node_lookup, :134 _member, :157 _row_deg inlined
-// (csrc/common.cuh).  Plain version: fastpath._probe_level_plain.
+// fastpath.py:114 _node_lookup, :134 _member, :149 _node_dirty, :157
+// _row_deg inlined (csrc/common.cuh), and its overlay branches
+// (fastpath.py:282-288, :305-308): dirty and virtual nodes expand nothing,
+// and an expansion or TTU row that needed a dirty node raises the query's
+// dirty bit.  Plain version: fastpath._probe_level_plain.
 //
 // Bound: bytes.  Per frontier item the level reads its 7 columns and
 // gathers (1 + Kc + Kt) node probes and (1 + Kc) membership probes, each
@@ -58,8 +61,10 @@ __global__ void probe_pass1(Graph g, Items f, const int32_t* __restrict__ q_foun
 // Pass 2 (one thread per frontier item): segment lengths
 // [expansion | css x Kc | ttu x Kt], their running sum and the TTU nodes.
 // Every output is written for every item (zero where gated), exactly as
-// the plain version computes it.
+// the plain version computes it; dirty bits are OR-ed into q_dirty_out (a
+// copy of the level's input bits).
 __global__ void probe_pass2(Graph g, Items f, const int32_t* __restrict__ q_found,
+                            int32_t* __restrict__ q_dirty_out,
                             int32_t nq, const int32_t* __restrict__ node_in,
                             int32_t* __restrict__ exp_deg_out,
                             int32_t* __restrict__ ttu_node_out,
@@ -79,7 +84,13 @@ __global__ void probe_pass2(Graph g, Items f, const int32_t* __restrict__ q_foun
 
     bool eok = cfg ? g.expand_ok[nr] != 0 : true;
     int32_t node = node_in[i];
-    int32_t exp_deg = (live2 && eok && d >= 2) ? row_deg(g, node) : 0;
+    bool dirty = false;
+    int32_t exp_deg = 0;
+    if (live2 && eok && d >= 2) {
+        bool nd;
+        exp_deg = row_deg_ov(g, node, &nd);
+        dirty = nd;
+    }
     exp_deg_out[i] = exp_deg;
     int32_t run = exp_deg;
     cum[0] = run;
@@ -95,21 +106,30 @@ __global__ void probe_pass2(Graph g, Items f, const int32_t* __restrict__ q_foun
         int32_t tn = node_lookup(g, ns, obj, via);
         ttu_node_out[(int64_t)i * g.kt + k] = tn;
         bool ok = live2 && (via >= 0) && (d - g.ttu_dec[nr * g.kt + k] >= 2);
-        run += ok ? row_deg(g, tn) : 0;
+        if (ok) {
+            bool nd;
+            run += row_deg_ov(g, tn, &nd);
+            dirty = dirty || nd;
+        }
         cum[1 + g.kc + k] = run;
     }
     counts_out[i] = run;
+    if (dirty) atomicOr(&q_dirty_out[qc], 1);
 }
 
 // Enqueue one level's probes on `stream`.  probe_only runs pass 1 alone
-// (the final level: no item can have children).
+// (the final level: no item can have children, the dirty bits pass
+// through).
 KT_EXPORT int probe_level(Graph g, Items f, const int32_t* q_found_in,
-                          int32_t* q_found_out, const int32_t* q_subj, int32_t nq,
+                          int32_t* q_found_out, const int32_t* q_dirty_in,
+                          int32_t* q_dirty_out, const int32_t* q_subj, int32_t nq,
                           int32_t* node_out, int32_t* exp_deg_out,
                           int32_t* ttu_node_out, int32_t* seg_cum_out,
                           int32_t* counts_out, int32_t probe_only,
                           cudaStream_t stream) {
     cudaMemcpyAsync(q_found_out, q_found_in, sizeof(int32_t) * nq,
+                    cudaMemcpyDeviceToDevice, stream);
+    cudaMemcpyAsync(q_dirty_out, q_dirty_in, sizeof(int32_t) * nq,
                     cudaMemcpyDeviceToDevice, stream);
     const int threads = 256;
     probe_pass1<<<kt_blocks(f.n, threads), threads, 0, stream>>>(
@@ -117,7 +137,7 @@ KT_EXPORT int probe_level(Graph g, Items f, const int32_t* q_found_in,
     if (!probe_only) {
         // -- grid-wide barrier: every pass-1 found bit is final --
         probe_pass2<<<kt_blocks(f.n, threads), threads, 0, stream>>>(
-            g, f, q_found_out, nq, node_out, exp_deg_out, ttu_node_out,
+            g, f, q_found_out, q_dirty_out, nq, node_out, exp_deg_out, ttu_node_out,
             seg_cum_out, counts_out);
     }
     return (int)cudaGetLastError();

@@ -70,30 +70,45 @@ __global__ void k_wave_tier0(const int32_t* __restrict__ qpack, int32_t q,
     if (fact != nullptr) fact[i] = (qpack[5 * q + i] != 0 && !ans) ? 1 : 0;
 }
 
-// After a tier-1 pass over active rows `act` (fused.py:158-173): found
-// (the pass's own after the first, else found_in | act & pfound), the rows
-// still unresolved (act & over & ~found of the pass; the dirty bit is 0
-// until the write overlay is ported), and retried |= unres when another
-// lane follows (`more`): unres is that lane's active row.  After the last
-// pass, unres is the fast fallback mask.
+// After a tier-1 pass over active rows `act` (fused.py:158-173).  First
+// pass (found_in null): found = the pass's own, unres = act & over & ~found
+// & ~dirty (a retry would read the same stale row), fb = (act & dirty &
+// ~found) | unres.  A retry lane: found = found_in | act & pfound, unres =
+// act & (over | dirty) & ~found of the pass, fb = (fb_in & ~act) | unres
+// (the first pass's dirty rows never enter a lane).  retried |= unres when
+// another lane follows (`more`): unres is that lane's active row.  After
+// the last pass, fb is the fast fallback mask.
 __global__ void k_wave_lane(const int32_t* __restrict__ act,
                             const int32_t* __restrict__ pfound,
                             const int32_t* __restrict__ pover,
+                            const int32_t* __restrict__ pdirty,
                             const int32_t* __restrict__ found_in,
-                            const int32_t* __restrict__ retried_in, int32_t q,
+                            const int32_t* __restrict__ retried_in,
+                            const int32_t* __restrict__ fb_in, int32_t q,
                             int32_t more, int32_t* __restrict__ found_out,
                             int32_t* __restrict__ unres_out,
-                            int32_t* __restrict__ retried_out) {
+                            int32_t* __restrict__ retried_out,
+                            int32_t* __restrict__ fb_out) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= q) return;
     bool a = act[i] != 0, f = pfound[i] != 0, o = pover[i] != 0;
-    bool found = found_in != nullptr ? ((found_in[i] != 0) || (a && f)) : f;
-    bool unres = a && o && !f;
+    bool dt = pdirty[i] != 0;
+    bool found, unres, fb;
+    if (found_in == nullptr) {
+        found = f;
+        unres = a && o && !f && !dt;
+        fb = (a && dt && !f) || unres;
+    } else {
+        found = (found_in[i] != 0) || (a && f);
+        unres = a && (o || dt) && !f;
+        fb = (fb_in[i] != 0 && !a) || unres;
+    }
     bool retried = (retried_in != nullptr && retried_in[i] != 0) ||
                    (more != 0 && unres);
     found_out[i] = found ? 1 : 0;
     unres_out[i] = unres ? 1 : 0;
     retried_out[i] = retried ? 1 : 0;
+    fb_out[i] = fb ? 1 : 0;
 }
 
 // The general retry lane (fused.py:193-211).  Without rcodes: the retry's
@@ -168,14 +183,16 @@ KT_EXPORT int wave_tier0(const int32_t* qpack, int32_t q, const int32_t* sets,
 }
 
 KT_EXPORT int wave_lane(const int32_t* act, const int32_t* pfound,
-                        const int32_t* pover, const int32_t* found_in,
-                        const int32_t* retried_in, int32_t q, int32_t more,
+                        const int32_t* pover, const int32_t* pdirty,
+                        const int32_t* found_in, const int32_t* retried_in,
+                        const int32_t* fb_in, int32_t q, int32_t more,
                         int32_t* found_out, int32_t* unres_out,
-                        int32_t* retried_out, cudaStream_t stream) {
+                        int32_t* retried_out, int32_t* fb_out,
+                        cudaStream_t stream) {
     const int threads = 256;
     k_wave_lane<<<kt_blocks(q, threads), threads, 0, stream>>>(
-        act, pfound, pover, found_in, retried_in, q, more, found_out,
-        unres_out, retried_out);
+        act, pfound, pover, pdirty, found_in, retried_in, fb_in, q, more,
+        found_out, unres_out, retried_out, fb_out);
     return (int)cudaGetLastError();
 }
 

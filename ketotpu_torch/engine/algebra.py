@@ -37,9 +37,12 @@ its CUDA kernel in ``csrc/algebra.cu``: :func:`gen_classify`,
 :func:`gen_up`, :func:`gen_pack`.  A wrapper takes the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
 
-Not ported: the ``shard=`` branch of the JAX body (the sharded mesh, K10)
-and the overlay's dirty bits (``_node_dirty`` is constant false until the
-delta overlay lands, so the dirty code bit is always 0).
+The program is overlay-aware as in JAX: probes consult the ``om_`` /
+``ovt_`` delta tables, a dirty or virtual node's edge rows read as empty,
+and a task that needed such a row (or an unfound leaf whose sub-run
+brushed one) sets its query's dirty code bit, which sends the row to the
+host oracle.  Not ported: the ``shard=`` branch of the JAX body (the
+sharded mesh, K10).
 """
 
 from __future__ import annotations
@@ -56,8 +59,8 @@ from ketotpu_torch.engine import hashtab
 from ketotpu_torch.engine.fastpath import (
     Items,
     Packed,
-    _node_dirty,
     _node_lookup,
+    _overlay_deg,
     _row_deg,
     _scatter_or,
 )
@@ -139,10 +142,11 @@ def _member(g: Tables, node, subj):
 
 
 def _deg_guarded(g: Tables, node):
-    """Edge-row degree and the node's dirty bit.  Without the delta
-    overlay no row is dirty and no node is virtual, so this is the plain
-    row degree and False (the JAX function zeroes dirty and virtual rows)."""
-    return _row_deg(g, node), _node_dirty(g, node)
+    """Edge-row degree with overlay semantics, and the node's dirty bit: a
+    dirty row's base edges are stale and a virtual node (>= ``ov_nbase``)
+    has no base row, so both read as 0 edges; the caller raises the
+    query's dirty flag (as ``fastpath.expand_phase`` does)."""
+    return _overlay_deg(g, node, _row_deg(g, node))
 
 
 def _vs_size(vcap: int) -> int:
@@ -566,13 +570,13 @@ def _fast_subrun(ops: fp._Ops, g: Tables, leaves: Items, subj: Tensor, *, sched,
     ``leaves`` is the sub-run's level 0 (what :func:`gen_collect` fills, or
     :func:`_leaf_items`), ``subj`` each leaf's subject; ``occ[0]`` holds the
     live leaves and the loop writes the live leaves entering each later
-    level.  Returns (found, over): int32 0/1 per leaf.  The JAX loop packs
-    once more after the probe-only last level (into a 1-slot frontier); a
-    probe-only level has no children, so that pack changes no bit and the
-    port's level loop stops before it."""
+    level.  Returns (found, over, dirty): int32 0/1 per leaf.  The JAX loop
+    packs once more after the probe-only last level (into a 1-slot
+    frontier); a probe-only level has no children, so that pack changes no
+    bit and the port's level loop stops before it."""
     zeros = torch.zeros(leaves.qid.shape[0], dtype=torch.int32, device=subj.device)
-    return fp._level_loop(ops, g, leaves, zeros, zeros.clone(), subj, sched,
-                          max_width=max_width, occ=occ)
+    return fp._level_loop(ops, g, leaves, zeros, zeros.clone(), zeros.clone(),
+                          subj, sched, max_width=max_width, occ=occ)
 
 
 # -- the device program's state ------------------------------------------------
@@ -847,24 +851,28 @@ def _gen_collect_plain(st: GenState, q_subj: Tensor) -> None:
     occ[D + 2:D + 3] = (f.qid >= 0).sum(dtype=torch.int32)
 
 
-def gen_up(st: GenState, level: int, found: Tensor, fover: Tensor) -> None:
+def gen_up(st: GenState, level: int, found: Tensor, fover: Tensor,
+           fdirty: Tensor) -> None:
     """One level of the up pass: map the sub-run's verdicts back onto the
-    level's fast leaves, resolve its unresolved combiners from their
+    level's fast leaves (an unfound leaf whose sub-run needed a dirty row
+    marks its query dirty), resolve its unresolved combiners from their
     child counts (OR / AND / NOT / PASS, any ERR first), then add the
     level's effective IS / NOT / ERR into its parents' counts."""
     if st.tasks.device.type == "cpu":
-        return _gen_up_plain(st, level, found, fover)
+        return _gen_up_plain(st, level, found, fover, fdirty)
     lo, n = st.span(level)
     plo, pn = st.span(level - 1) if level > 0 else (0, 0)
     B = st.leaves.qid.shape[0]
     dev = st.tasks.device
     kernels.require(found, torch.int32, "found", shape=(B,), device=dev)
     kernels.require(fover, torch.int32, "fover", shape=(B,), device=dev)
+    kernels.require(fdirty, torch.int32, "fdirty", shape=(B,), device=dev)
     _launch("gen_up", kernels.gen_state(st), lo, n, level, plo, pn,
-            kernels.ptr(found), kernels.ptr(fover))
+            kernels.ptr(found), kernels.ptr(fover), kernels.ptr(fdirty))
 
 
-def _gen_up_plain(st: GenState, level: int, found: Tensor, fover: Tensor) -> None:
+def _gen_up_plain(st: GenState, level: int, found: Tensor, fover: Tensor,
+                  fdirty: Tensor) -> None:
     Q = st.q
     B = found.shape[0]
     t = st.task_dict(level)
@@ -877,6 +885,7 @@ def _gen_up_plain(st: GenState, level: int, found: Tensor, fover: Tensor) -> Non
     fnd = found[fc] != 0
     f_res = torch.where(fnd, R_IS, torch.where(t["d"] >= 1, R_NOT, R_UNKNOWN))
     st.q_over.copy_(_scatter_or(st.q_over, qc, has & (fover[fc] != 0)))
+    st.q_dirty.copy_(_scatter_or(st.q_dirty, qc, has & (fdirty[fc] != 0) & ~fnd))
     res = torch.where(has, f_res, t["res"])
     resolved = t["resolved"] | has
     if level < st.depth:
@@ -1007,10 +1016,10 @@ def _run_general(ops: _GenOps, g: Tables, qpack, sizes, fast_b: int, fast_sched,
         ops.visited(st, L + 1)
         ops.classify(g, st, L + 1, q_subj, last=L + 1 == depth)
     ops.collect(st, q_subj)
-    found, fover = _fast_subrun(ops.fast, g, st.leaves, st.leaf_subj,
-                                sched=fast_sched, max_width=max_width,
-                                occ=st.occ()[depth + 2:])
+    found, fover, fdirty = _fast_subrun(ops.fast, g, st.leaves, st.leaf_subj,
+                                        sched=fast_sched, max_width=max_width,
+                                        occ=st.occ()[depth + 2:])
     for L in range(depth, -1, -1):
-        ops.up(st, L, found, fover)
+        ops.up(st, L, found, fover, fdirty)
     ops.pack(st)
     return st.packed(), st

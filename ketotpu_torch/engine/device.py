@@ -3,12 +3,20 @@
 The port of the JAX package's ``engine/tpu.py`` ``DeviceCheckEngine``:
 callers hand it relation tuples, it answers allow/deny.  It
 
-1. projects the store into a snapshot (``delta.build_snapshot_cols``) and
-   uploads ``Snapshot.check_arrays()`` to the device once per store
-   version, and with Leopard on (the default) builds the closure index
-   (``leopard.closure``) and ships its pair columns — any write makes the
-   next batch re-project and rebuild both (the O(delta) overlay and the
-   closure fold of the JAX engine are not ported yet);
+1. projects the store into a snapshot (``delta.build_snapshot_cols``),
+   uploads ``Snapshot.check_arrays()`` with an empty delta overlay, and
+   with Leopard on (the default) builds the closure index
+   (``leopard.closure``) and ships its pair columns.  Writes reach the card
+   as the JAX engine's synchronous write path takes them, drained from the
+   store's change log at the next batch: the O(delta) overlay
+   (``delta.apply_changes`` / ``overlay_arrays``, re-shipped as fresh
+   tensors), else an incremental fold of the changes since the base
+   (``delta.fold_snapshot_cols``, same device shapes), else a full
+   re-projection; the closure index folds the same changes
+   (``ClosureIndex.apply_changes``) or rebuilds where JAX rebuilds.  A row
+   whose exploration needed a row the overlay marked dirty comes back with
+   its dirty bit and the oracle answers it (the background compactor of
+   the JAX engine is not ported);
 2. interns query strings to dense ids (unknown strings miss everywhere,
    which reproduces "unknown namespace => not allowed");
 3. classifies each query: Leopard-eligible rows are answered by the
@@ -60,6 +68,15 @@ from ketotpu_torch.leopard import closure as leo
 from ketotpu_torch.leopard import device as leodev
 from ketotpu_torch.storage.namespaces import NamespaceManager
 
+#: the write path's limits, at the JAX engine's defaults: the overlay's
+#: net pairs and dirty nodes (past either a write folds or rebuilds), and
+#: the changes since the base that a fold still takes (past it, folds stay
+#: off until the next full build); the JAX engine's background compactor
+#: is not ported
+MAX_OVERLAY_PAIRS = 4096
+MAX_OVERLAY_DIRTY = 512
+FOLD_MAX_PAIRS = 200_000
+
 
 def _bucket(n: int, floor: int = 256) -> int:
     b = floor
@@ -97,9 +114,10 @@ GenSchedule = Tuple[Tuple[int, ...], int, Tuple[Tuple[int, int], ...], int]
 
 
 class LeoState(NamedTuple):
-    """The closure index of one projection: the host index, its pair
-    columns on the device (None for an empty index) and the check tables
-    with those columns added (what the fused wave reads)."""
+    """The closure index: the host index, its pair columns on the device
+    (None for an empty index) and the current check tables with those
+    columns added (what the fused wave reads; rebuilt whenever the check
+    tables are re-shipped)."""
 
     index: leo.ClosureIndex
     pairs: Optional[Dict[str, torch.Tensor]]
@@ -217,12 +235,26 @@ class DeviceCheckEngine:
             strict_mode=strict_mode,
         )
         self._vocab = Vocab()
-        # the HTTP server calls batch_check from many threads: one
-        # projection at a time, and (snapshot, tables) read as one pair
+        # the HTTP server calls batch_check from many threads: one drain of
+        # the change log at a time (two threads draining with the same
+        # cursor would apply a write twice), and (snapshot, tables, Leopard
+        # state) read as one triple
         self._view_lock = threading.Lock()
         self._snap: Optional[Snapshot] = None
-        self._snap_key = None
+        self._snap_fingerprint: Optional[int] = None
+        # the base tables of the current projection and the check tables
+        # (the base with the overlay's tables merged over it); a write
+        # replaces the overlay tensors, never writes into them, so a batch
+        # already enqueued keeps the overlay it was planned with
+        self._base_device: Optional[Dict[str, torch.Tensor]] = None
         self._device_arrays: Optional[Dict[str, torch.Tensor]] = None
+        # the store's tuples as id columns, kept current from the change log
+        self._cols: Optional[dl.TupleColumns] = None
+        self._log_cursor = 0
+        self._overlay: Optional[dl.OverlayState] = None
+        self._overlay_active = False
+        self.max_overlay_pairs = MAX_OVERLAY_PAIRS
+        self.max_overlay_dirty = MAX_OVERLAY_DIRTY
         # demand-adaptive level scheduling: EMA of the per-level frontier
         # occupancy (units of active roots), None until the first batch
         self._occ_ema: Optional[np.ndarray] = None
@@ -237,7 +269,16 @@ class DeviceCheckEngine:
         self.occ_headroom = occ_headroom
         self.fallbacks = 0  # queries answered by the host oracle
         self.retries = 0  # queries re-run at retry_scale x caps
-        self.rebuilds = 0  # projections + uploads
+        self.rebuilds = 0  # full projections + uploads
+        self.overlay_applies = 0  # writes served through the overlay
+        self.folds = 0  # incremental folds of the changes since the base
+        self.generation = 0  # base snapshots published (rebuilds + folds)
+        self.last_compaction_mode = "none"  # fold | rebuild | none
+        self.last_build_phases: Dict[str, float] = {}
+        # the last drain of the change log: its tier (overlay / fold /
+        # rebuild), the closure index's outcome (apply / rebuild / off) and
+        # host seconds per step
+        self.last_write: Dict[str, object] = {}
         # device batches enqueued, per (Q, frontier, arena, boost): every
         # batch of one shape launches the same kernels at the same sizes
         self.dispatch_shapes: Counter = Counter()
@@ -260,7 +301,9 @@ class DeviceCheckEngine:
         # None while disabled, too large or not built yet
         lcfg = dict(leopard or {})
         self.leopard_enabled = bool(lcfg.get("enabled", True))
-        self._leopard_max_pairs = int(lcfg.get("max_pairs", 4_000_000))
+        self._leopard_cfg = {
+            "max_pairs": int(lcfg.get("max_pairs", 4_000_000)),
+        }
         self._leo: Optional[LeoState] = None
         self.leopard_answered = 0  # checks answered from the index
         self.leopard_hits = 0  # of those, answered allowed
@@ -279,6 +322,11 @@ class DeviceCheckEngine:
         }
         # fused waves enqueued, per WavePlan.shape()
         self.wave_shapes: Counter = Counter()
+        # the changes drained since the base snapshot (the fold's input);
+        # None once they outgrew FOLD_MAX_PAIRS, until the next full build
+        self._since_base: Optional[list] = []
+        self._snap_cursor = 0  # log cursor the base snapshot covers
+        self._served_cursor = 0  # log cursor the served view covers
 
     def _phase(self, name: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -286,76 +334,288 @@ class DeviceCheckEngine:
         return t1
 
     # -- snapshot lifecycle -------------------------------------------------
+    #
+    # The JAX engine's synchronous write path (engine/tpu.py:400-758):
+    # writes drain from the store's change log into the column mirror and
+    # the closure index, then reach the card through the O(delta) overlay,
+    # else an incremental fold, else a full re-projection.
 
     def _view(self):
-        """(snapshot, device tables, Leopard state), re-projecting when the
-        store or the namespace config moved since the last projection."""
+        """(snapshot, device tables, Leopard state), with every write the
+        store logged since the last batch applied first."""
         with self._view_lock:
-            key = (self.store.version,
-                   config_fingerprint(self.namespace_manager))
-            if self._snap is None or key != self._snap_key:
-                self._rebuild(key)
+            self._snapshot_locked()
             return self._snap, self._device_arrays, self._leo
 
-    def _columns(self) -> dl.TupleColumns:
+    def _sync_cols(self) -> None:
+        """Bring the column mirror up to date with the store: from the
+        change log when it still covers the cursor, else a full rescan
+        (a columnar store's id columns adopted wholesale: the 10M path)."""
+        if self._cols is not None:
+            changes, head = self.store.changes_since(self._log_cursor)
+            if changes is not None:
+                for op, t in changes:
+                    self._cols.apply(op, t)
+                self._log_cursor = head
+                return
+            self._cols = None  # the change log overflowed past our cursor
         exporter = getattr(self.store, "export_columns", None)
         store_vocab = getattr(self.store, "vocab", None)
         if exporter is not None and (
             store_vocab is self._vocab or len(self._vocab.subjects) == 0
         ):
-            # columnar store: adopt its id columns wholesale (10M path)
-            cols, alive, tail, _head = exporter()
+            cols, alive, tail, head = exporter()
             self._vocab = store_vocab
-            out = dl.TupleColumns.from_arrays(store_vocab, cols, alive)
+            self._cols = dl.TupleColumns.from_arrays(store_vocab, cols, alive)
             for t in tail:
-                out.apply(1, t)
-            return out
-        tuples, _head = self.store.tuples_and_head()
-        return dl.TupleColumns.from_tuples(self._vocab, tuples)
+                self._cols.apply(1, t)
+            self._log_cursor = head
+            return
+        tuples, head = self.store.tuples_and_head()
+        self._cols = dl.TupleColumns.from_tuples(self._vocab, tuples)
+        self._log_cursor = head
 
-    def _rebuild(self, key) -> None:
+    def _snapshot_locked(self) -> None:
+        fingerprint = config_fingerprint(self.namespace_manager)
+        if self._snap is None or self._snap_fingerprint != fingerprint:
+            self._rebuild(fingerprint)
+            return
+        changes, head = self.store.changes_since(self._log_cursor)
+        if changes is None:
+            self._rebuild(fingerprint)
+            return
+        if not changes:
+            return
         t0 = time.perf_counter()
-        cols = self._columns()
-        cols.compact()
-        self._snap = dl.build_snapshot_cols(
-            cols, self.namespace_manager, strict=self.strict_mode,
-            version=self.store.version,
-        )
+        w = self.last_write = {"changes": len(changes)}
+        for op, t in changes:
+            self._cols.apply(op, t)
+        self._log_cursor = head
+        self._note_since_base(changes)
         t1 = time.perf_counter()
-        self._device_arrays = upload(self._snap.check_arrays(), self.device)
+        w["drain_s"] = t1 - t0
+        # the closure index folds at drain time, against the mirror
+        w["leopard"] = self._leopard_fold(changes)
+        w["leopard_s"] = time.perf_counter() - t1
+        if self._overlay_apply(changes):
+            self._overlay_active = True
+            self.overlay_applies += 1
+            self._served_cursor = self._log_cursor
+            w["tier"] = "overlay"
+        elif self._fold_locked(fingerprint):
+            w["tier"] = "fold"
+        else:
+            self._rebuild(fingerprint)
+            w["tier"] = "rebuild"
+            w["build_s"] = self.projection_build_s
+            w["upload_s"] = self.projection_upload_s
+        w["total_s"] = time.perf_counter() - t0
+
+    def _sync_device(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _array_shapes(d) -> Optional[dict]:
+        if d is None:
+            return None
+        return {k: (tuple(v.shape), v.dtype) for k, v in d.items()}
+
+    def _rebuild(self, fingerprint: int) -> None:
+        t0 = time.perf_counter()
+        ph: Dict[str, float] = {}
+        self._sync_cols()
+        self._cols.compact()
+        self._snap = dl.build_snapshot_cols(
+            self._cols, self.namespace_manager, strict=self.strict_mode,
+            version=self.store.version, phases=ph,
+        )
+        t1 = time.perf_counter()
+        self._snap_fingerprint = fingerprint
+        self._overlay = dl.OverlayState()
+        self._overlay_active = False
+        old_shapes = self._array_shapes(self._device_arrays)
+        self._install_device_arrays()
+        self._sync_device()
         self.projection_build_s = t1 - t0
         self.projection_upload_s = time.perf_counter() - t1
-        self._snap_key = key
         self.rebuilds += 1
-        with self._gen_lock:
-            self._gen_sched_cache.clear()  # a new graph: re-adapt once
-        self._install_leopard(cols)
+        self.generation += 1
+        self._snap_cursor = self._served_cursor = self._log_cursor
+        self._since_base = []
+        self.last_compaction_mode = "rebuild"
+        self.last_build_phases = {f"build_{k}": v for k, v in ph.items()}
+        if self._array_shapes(self._device_arrays) != old_shapes:
+            with self._gen_lock:
+                self._gen_sched_cache.clear()  # a new graph: re-adapt once
+        self._install_leopard()
 
-    def _install_leopard(self, cols: dl.TupleColumns) -> None:
-        """(Re)build the closure index from the projection's columns and
-        ship its pair columns.  A closure past ``max_pairs`` leaves the
-        index off (the lower tiers answer everything)."""
-        self._leo = None
-        if not self.leopard_enabled:
-            return
-        idx = leo.ClosureIndex(max_width=self.max_width,
-                               max_pairs=self._leopard_max_pairs)
+    def _install_device_arrays(self) -> None:
+        """Ship the projection: the base tables once per build, then the
+        overlay's tables merged over them, empty ones from the first build
+        so the kernels see the same tables before and after a write."""
+        self._base_device = upload(self._snap.check_arrays(), self.device)
+        self._set_overlay_tables(upload(
+            dl.overlay_arrays(self._overlay, self._snap,
+                              pair_cap=self.max_overlay_pairs),
+            self.device,
+        ))
+
+    def _set_overlay_tables(self, ov: Dict[str, torch.Tensor]) -> None:
+        """Publish new check tables (the base with ``ov`` over it) and the
+        fused wave's tables built from them: nothing keeps reading the
+        previous overlay through a stale view."""
+        g = kernels.DeviceTables(self._base_device)
+        g.update(ov)
+        self._device_arrays = g
+        if self._leo is not None:
+            self._leo = self._leo._replace(tables=self._leo_tables(self._leo.pairs))
+
+    def _leo_tables(self, pairs):
+        if pairs is None:
+            return None
+        tables = kernels.DeviceTables(self._device_arrays)
+        tables.update(leo_sets=pairs["sets"], leo_elts=pairs["elts"],
+                      leo_hops=pairs["hops"])
+        return tables
+
+    def _overlay_apply(self, changes) -> bool:
+        """Serve ``changes`` through the O(delta) overlay; False when it
+        cannot (or should not) represent them."""
+        w = self.last_write
+        t0 = time.perf_counter()
         try:
-            idx.build_from_cols(cols, self.namespace_manager)
+            dl.apply_changes(self._overlay, self._snap, self._vocab, changes)
+        except dl.OverlayRejected:
+            return False
+        pairs, dirty = self._overlay.size()
+        if pairs > self.max_overlay_pairs or dirty > self.max_overlay_dirty:
+            return False
+        try:
+            ov = dl.overlay_arrays(self._overlay, self._snap,
+                                   pair_cap=self.max_overlay_pairs)
+        except ValueError:  # the fixed-shape table could not fit the content
+            return False
+        t1 = time.perf_counter()
+        # fresh tensors: a batch already enqueued keeps reading the old ones
+        self._set_overlay_tables(upload(ov, self.device))
+        w["build_s"] = t1 - t0
+        w["upload_s"] = time.perf_counter() - t1
+        return True
+
+    def _note_since_base(self, changes) -> None:
+        """Accumulate the drained changes for the fold; past the fold
+        budget they are dropped and folds stay off until the next full
+        build."""
+        if self._since_base is None:
+            return
+        self._since_base.extend(changes)
+        if len(self._since_base) > FOLD_MAX_PAIRS:
+            self._since_base = None
+
+    def _fold_locked(self, fingerprint: int) -> bool:
+        """Second tier: fold the changes since the base into it instead of
+        re-projecting every tuple.  The fold keeps every padded shape (it
+        rejects pad crossings), so the re-shipped tables have the shapes
+        the dispatch schedules were sized for."""
+        if not self._since_base:
+            return False
+        ph: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        try:
+            snap = dl.fold_snapshot_cols(
+                self._snap, self._vocab, self._since_base,
+                version=self.store.version, phases=ph,
+            )
+        except dl.FoldRejected:
+            return False
+        t1 = time.perf_counter()
+        old_shapes = self._array_shapes(self._device_arrays)
+        self._snap = snap
+        self._snap_fingerprint = fingerprint
+        self._snap_cursor = self._log_cursor
+        self._since_base = []
+        self._overlay = dl.OverlayState()
+        self._overlay_active = False
+        self._install_device_arrays()
+        self._sync_device()
+        self.projection_build_s = t1 - t0
+        self.projection_upload_s = time.perf_counter() - t1
+        self.generation += 1
+        self.folds += 1
+        self.last_compaction_mode = "fold"
+        self.last_build_phases = dict(ph)
+        self.last_write.update(build_s=self.projection_build_s,
+                               upload_s=self.projection_upload_s)
+        if self._array_shapes(self._device_arrays) != old_shapes:
+            with self._gen_lock:
+                self._gen_sched_cache.clear()
+        self._served_cursor = self._log_cursor
+        return True
+
+    def _install_leopard(self) -> None:
+        """(Re)build the closure index from the column mirror and ship its
+        pair columns.  A closure past ``max_pairs`` leaves the index off
+        (the lower tiers answer everything)."""
+        self._leo = None
+        if not self.leopard_enabled or self._cols is None:
+            return
+        idx = leo.ClosureIndex(max_width=self.max_width, **self._leopard_cfg)
+        try:
+            idx.build_from_cols(self._cols, self.namespace_manager)
         except leo.ClosureTooLarge:
             return
         idx.bind_vocab(self._vocab)
         pairs = leodev.ship_pairs(idx, self.device)
-        tables = None
-        if pairs is not None:
-            tables = kernels.DeviceTables(self._device_arrays)
-            tables.update(leo_sets=pairs["sets"], leo_elts=pairs["elts"],
-                          leo_hops=pairs["hops"])
-        self._leo = LeoState(idx, pairs, tables)
+        self._leo = LeoState(idx, pairs, self._leo_tables(pairs))
         self.phase_seconds["leopard_build"] = (
             self.phase_seconds.get("leopard_build", 0.0) + idx.build_s)
+
+    def _leopard_fold(self, changes) -> str:
+        """Fold drained changes into the closure index: additions append
+        closure pairs, deletions mark set ids dirty; what the delta cannot
+        represent (an unknown node, its thresholds) rebuilds the index from
+        the mirror.  Returns the outcome: apply, rebuild or off."""
+        if self._leo is None:
+            return "off"
+        if self._leo.index.apply_changes(changes):
+            return "apply"
+        self._install_leopard()
+        return "rebuild"
+
+    def refresh(self) -> None:
+        """Force a full re-projection."""
+        with self._view_lock:
+            self._rebuild(config_fingerprint(self.namespace_manager))
+
+    def projection_stats(self) -> dict:
+        """The write path's state in one consistent read (the JAX engine's
+        ``projection_stats`` without its background-compactor fields)."""
+        with self._view_lock:
+            pairs, dirty = (self._overlay.size() if self._overlay is not None
+                            else (0, 0))
+            return {
+                "generation": self.generation,
+                "rebuilds": self.rebuilds,
+                "folds": self.folds,
+                "overlay_applies": self.overlay_applies,
+                "last_compaction_mode": self.last_compaction_mode,
+                "overlay_active": self._overlay_active,
+                "overlay_pairs": pairs,
+                "overlay_dirty": dirty,
+                "overlay_pair_cap": self.max_overlay_pairs,
+                "overlay_dirty_cap": self.max_overlay_dirty,
+                "since_base": (len(self._since_base)
+                               if self._since_base is not None else -1),
+                "fold_max_pairs": FOLD_MAX_PAIRS,
+                "snap_cursor": self._snap_cursor,
+                "served_cursor": self._served_cursor,
+                "log_cursor": self._log_cursor,
+                "projection_build_s": round(self.projection_build_s, 6),
+                "projection_upload_s": round(self.projection_upload_s, 6),
+                "build_phases": {k: round(v, 6)
+                                 for k, v in self.last_build_phases.items()},
+            }
 
     def leopard_stats(self) -> dict:
         """Gauge snapshot of tier 0 (the JAX engine's keto_leopard_*)."""
@@ -675,18 +935,20 @@ class DeviceCheckEngine:
         q_ns, q_obj, q_rel, q_subj, q_depth = enc
         n = len(q_ns)
         idx = leo_state.index
-        nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
-        probed = None
-        if leo_state.pairs is not None:
-            keys = np.where(
-                (nodes >= 0) & (q_subj >= 0),
-                (nodes.astype(np.int64) << 32) | q_subj.astype(np.int64),
-                np.int64(-1),
+        # under the lock: a write's drain folds into this index in place
+        with self._view_lock:
+            nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
+            probed = None
+            if leo_state.pairs is not None:
+                keys = np.where(
+                    (nodes >= 0) & (q_subj >= 0),
+                    (nodes.astype(np.int64) << 32) | q_subj.astype(np.int64),
+                    np.int64(-1),
+                )
+                probed = leodev.probe_pairs(leo_state.pairs, keys, _bucket(n))
+            allowed, answered = idx.answer_checks(
+                nodes, q_subj, node_hi, int(q_depth[0]), probed=probed
             )
-            probed = leodev.probe_pairs(leo_state.pairs, keys, _bucket(n))
-        allowed, answered = idx.answer_checks(
-            nodes, q_subj, node_hi, int(q_depth[0]), probed=probed
-        )
         answered &= ~(err | general)
         allowed &= answered
         self.leopard_answered += int(answered.sum())
@@ -716,21 +978,25 @@ class DeviceCheckEngine:
         tables = g
         if has_leo:
             idx = leo_state.index
-            nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
-            if leo_state.pairs is not None:
-                lmode = idx.prep_fused_checks(nodes, q_subj, node_hi,
-                                              rest_depth)
-                probe_ok = (nodes >= 0) & (q_subj >= 0)
-                leo_set = np.where(probe_ok, nodes, -1).astype(np.int32)
-                leo_elt = np.where(probe_ok, q_subj, -1).astype(np.int32)
-                tables = leo_state.tables
-            else:
-                # no pair columns (empty index): the host answers, encoded
-                # as pre-resolved modes that need no search
-                allowed, answered = idx.answer_checks(
-                    nodes, q_subj, node_hi, int(q_depth[0]))
-                lmode[answered & allowed] = leo.LM_ALLOW
-                lmode[answered & ~allowed] = leo.LM_DENY
+            # under the lock: a write's drain folds into this index in place
+            with self._view_lock:
+                nodes, node_hi = idx.node_ids_np(q_ns, q_obj, q_rel)
+                if leo_state.pairs is not None:
+                    # the raw rest_depth (0 = the engine maximum), as the
+                    # JAX _dispatch_fused passes it
+                    lmode = idx.prep_fused_checks(nodes, q_subj, node_hi,
+                                                  rest_depth)
+                    probe_ok = (nodes >= 0) & (q_subj >= 0)
+                    leo_set = np.where(probe_ok, nodes, -1).astype(np.int32)
+                    leo_elt = np.where(probe_ok, q_subj, -1).astype(np.int32)
+                    tables = leo_state.tables
+                else:
+                    # no pair columns (empty index): the host answers,
+                    # encoded as pre-resolved modes that need no search
+                    allowed, answered = idx.answer_checks(
+                        nodes, q_subj, node_hi, int(q_depth[0]))
+                    lmode[answered & allowed] = leo.LM_ALLOW
+                    lmode[answered & ~allowed] = leo.LM_DENY
         lmode[err | general] = leo.LM_NONE
         fast_elig = ~(err | general)
         qpad = min(_bucket(n), self.frontier)
@@ -846,8 +1112,9 @@ class DeviceCheckEngine:
         self._phase("general", t0)
         codes = (packed & 3).astype(np.int8)
         over = ((packed >> 2) & 1).astype(bool)
-        # dirty: the skeleton touched stale overlay state (always 0 until
-        # the delta overlay is ported); a device retry would see it again
+        # dirty: the skeleton touched overlay-stale state (a changed edge
+        # row); under AND/NOT even an IS can be wrong, so the oracle
+        # answers, and a device retry would read the same stale base
         dirty = ((packed >> 3) & 1).astype(bool)
         allowed = codes == R_IS
         unres = over & ~dirty & (codes != R_ERR)
@@ -892,12 +1159,18 @@ class DeviceCheckEngine:
         self._update_occ(occ)
         found = (codes & 1).astype(bool)
         over = ((codes >> 1) & 1).astype(bool)
+        dirty = ((codes >> 2) & 1).astype(bool)
         fmask = ~(err | general)
         if leo_res is not None:
             fmask &= ~leo_res[1]
         allowed[fmask] = found[fmask]
+        # a dirty row needed an edge row with pending writes: the oracle
+        # answers unless membership was already found (found bits are
+        # overlay-exact and monotone); a device retry would read the same
+        # stale row, so dirty rows stay out of the retry
+        fallback |= fmask & dirty & ~found
         # found is monotone: an overflow only voids not-yet-found queries
-        unres = fmask & over & ~found
+        unres = fmask & over & ~found & ~dirty
         if unres.any() and self.retry_scale > 1:
             ri = np.flatnonzero(unres)
             self.retries += len(ri)
@@ -911,7 +1184,8 @@ class DeviceCheckEngine:
             rcodes = rcodes[: len(ri)]
             rfound = (rcodes & 1).astype(bool)
             allowed[ri] = rfound
-            unres[ri] = ((rcodes >> 1) & 1).astype(bool) & ~rfound
+            unres[ri] = (((rcodes >> 1) | (rcodes >> 2)) & 1).astype(bool) \
+                & ~rfound
             self._phase("retry", t0)
         return allowed, fallback | unres
 

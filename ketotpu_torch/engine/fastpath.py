@@ -36,8 +36,13 @@ one device-to-host copy (:meth:`Packed.fetch`).  Its level loop,
 pass over a device-resident query block, :func:`_fast_pass`, is tier 1 of
 the fused wave (``engine/fused.py``).
 
-Queries, frontier columns and the found/over bits are int32 (skip/force
-bool); found/over are 0/1 int32 so the kernels can OR them atomically.
+Queries, frontier columns and the found/over/dirty bits are int32
+(skip/force bool); the bits are 0/1 int32 so the kernels can OR them
+atomically.  With the delta overlay's tables in ``g`` (the engine always
+ships them, empty until a write), node and membership probes consult it
+and an expansion that needs a row the overlay marked dirty raises its
+query's dirty bit (bit 2 of the verdict byte): the engine answers that
+row on the host oracle.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from ketotpu_torch import kernels
 from ketotpu_torch.engine import hashtab
+from ketotpu_torch.engine.delta import OV_ADDED, OV_DELETED
 from ketotpu_torch.engine.xutil import _arena_assign_plain, arena_assign
 
 Tensor = torch.Tensor
@@ -114,26 +120,49 @@ def _dims(g: Tables) -> Tuple[int, int, int, int]:
 
 
 def _node_lookup(g: Tables, ns, obj, rel):
-    """(ns, obj, rel) -> node id or -1.  Stride = padded relation count."""
+    """(ns, obj, rel) -> node id or -1.  Stride = padded relation count.
+    With a delta overlay, nodes created since the base snapshot resolve to
+    virtual ids (>= the base node count) through the ``ovt_`` table."""
     num_rels = g["f_direct_ok"].shape[1]
     hi = ns * num_rels + rel
     ok = (ns >= 0) & (obj >= 0) & (rel >= 0)
     idx, found = hashtab.lookup(hashtab.subtables(g, "nt_"), hi, obj)
-    return torch.where(found & ok, idx, -1).to(torch.int32)
+    found = found & ok
+    res = torch.where(found, idx, -1)
+    if "ovt_ptr" in g:
+        vid, vfound = hashtab.lookup(hashtab.subtables(g, "ovt_"), hi, obj)
+        res = torch.where(ok & vfound & ~found, vid, res)
+    return res.to(torch.int32)
 
 
 def _member(g: Tables, node, subj):
-    """Does tuple (node, subject) exist?  ExistsRelationTuples equivalent."""
+    """Does tuple (node, subject) exist?  ExistsRelationTuples equivalent.
+    Overlay-exact: base OR added since the base AND NOT deleted since it,
+    so a probe verdict reflects the latest write."""
     _, found = hashtab.lookup(hashtab.subtables(g, "mt_"), node, subj)
+    if "om_ptr" in g:
+        v, vf = hashtab.lookup(hashtab.subtables(g, "om_"), node, subj)
+        found = (found | (vf & (v == OV_ADDED))) & ~(vf & (v == OV_DELETED))
     return found
 
 
 def _node_dirty(g: Tables, node):
     """Did this node's subject-set edge list change since the base
-    snapshot?  The port has no delta overlay yet (every write re-projects
-    the store), so no row is ever dirty; the ``ov_dirty`` branch of the
-    JAX function waits for the overlay."""
-    return torch.zeros(node.shape, dtype=torch.bool, device=node.device)
+    snapshot?  (False without an overlay.)"""
+    if "ov_dirty" not in g:
+        return torch.zeros(node.shape, dtype=torch.bool, device=node.device)
+    dsz = g["ov_dirty"].shape[0]
+    return g["ov_dirty"][node.clamp(0, dsz - 1).to(torch.int64)] & (node >= 0)
+
+
+def _overlay_deg(g: Tables, node, deg):
+    """``deg`` with the overlay's rows zeroed: a dirty row's base edges are
+    stale and a virtual node (>= ``ov_nbase``) has no base row.  Returns
+    (deg, dirty)."""
+    nd = _node_dirty(g, node)
+    if "ov_nbase" in g:
+        deg = torch.where(nd | (node >= g["ov_nbase"]), 0, deg)
+    return deg, nd
 
 
 def _row_deg(g: Tables, node):
@@ -215,21 +244,28 @@ def _init_state_plain(qpack: Tensor, *, frontier: int, levels: int, occ_out: Ten
 # -- one level, probe half (K1 + K2 + K3) --------------------------------------
 
 
-def probe_level(g: Tables, f: Items, q_found: Tensor, q_subj: Tensor, *,
-                probe_only: bool = False):
-    """Probes of one level.  Returns (q_found', LevelProbe); a probe-only
-    level (the final one: no item there can have children) returns only
-    the node column in its LevelProbe and skips the segment pass."""
+def probe_level(g: Tables, f: Items, q_found: Tensor, q_dirty: Tensor,
+                q_subj: Tensor, *, probe_only: bool = False):
+    """Probes of one level.  Returns (q_found', q_dirty', LevelProbe); a
+    probe-only level (the final one: no item there can have children)
+    returns only the node column in its LevelProbe, skips the segment pass
+    and leaves the dirty bits as they were.  With the overlay tables in
+    ``g``, a dirty or virtual node's expansion and TTU rows read as empty
+    and an expansion that needed a dirty row raises its query's dirty
+    bit."""
     if f.qid.device.type == "cpu":
-        return _probe_level_plain(g, f, q_found, q_subj, probe_only=probe_only)
+        return _probe_level_plain(g, f, q_found, q_dirty, q_subj,
+                                  probe_only=probe_only)
     dev = f.qid.device
     n = f.qid.shape[0]
     nq = q_found.shape[0]
     _, _, kc, kt = _dims(g)
     kernels.require(q_found, torch.int32, "q_found", device=dev)
+    kernels.require(q_dirty, torch.int32, "q_dirty", shape=(nq,), device=dev)
     kernels.require(q_subj, torch.int32, "q_subj", shape=(nq,), device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     q_found_out = torch.empty(nq, **i32)
+    q_dirty_out = torch.empty(nq, **i32)
     lv = LevelProbe(torch.empty(n, **i32), None, None, None, None)
     if not probe_only:
         lv.exp_deg = torch.empty(n, **i32)
@@ -238,17 +274,18 @@ def probe_level(g: Tables, f: Items, q_found: Tensor, q_subj: Tensor, *,
         lv.counts = torch.empty(n, **i32)
     kernels.launch(
         "probe", "probe_level", kernels.graph(g), kernels.items(f),
-        kernels.ptr(q_found), kernels.ptr(q_found_out), kernels.ptr(q_subj), nq,
+        kernels.ptr(q_found), kernels.ptr(q_found_out), kernels.ptr(q_dirty),
+        kernels.ptr(q_dirty_out), kernels.ptr(q_subj), nq,
         kernels.ptr(lv.node), kernels.ptr(lv.exp_deg), kernels.ptr(lv.ttu_node),
         kernels.ptr(lv.seg_cum), kernels.ptr(lv.counts), int(probe_only),
         kernels.stream(),
     )
     kernels.LAUNCHES["probe_level"] += 1
-    return q_found_out, lv
+    return q_found_out, q_dirty_out, lv
 
 
-def _probe_level_plain(g: Tables, f: Items, q_found: Tensor, q_subj: Tensor, *,
-                       probe_only: bool = False):
+def _probe_level_plain(g: Tables, f: Items, q_found: Tensor, q_dirty: Tensor,
+                       q_subj: Tensor, *, probe_only: bool = False):
     NS, R, Kc, Kt = _dims(g)
     Q = q_found.shape[0]
     qid, ns, obj, rel, d = f.qid, f.ns, f.obj, f.rel, f.d
@@ -278,13 +315,19 @@ def _probe_level_plain(g: Tables, f: Items, q_found: Tensor, q_subj: Tensor, *,
 
     q_found = _scatter_or(q_found, qc, found)
     if probe_only:
-        return q_found, LevelProbe(node, None, None, None, None)
+        return q_found, q_dirty, LevelProbe(node, None, None, None, None)
     live2 = live & (q_found[qc] == 0)
 
     # segments: [expansion | css 0..Kc | ttu 0..Kt]; the full row degree
     # is taken so found bits cover pre-truncation results (engine.go:131-139)
     exp_read = live2 & eok & (d >= 2)
-    exp_deg = torch.where(exp_read, _row_deg(g, node), 0).to(torch.int32)
+    exp_deg = torch.where(exp_read, _row_deg(g, node), 0)
+    if "ov_dirty" in g:
+        # a dirty row's base edges are stale: do not expand them, flag the
+        # query for the host oracle; a virtual node has no base row at all
+        exp_deg, nd = _overlay_deg(g, node, exp_deg)
+        q_dirty = _scatter_or(q_dirty, qc, exp_read & nd)
+    exp_deg = exp_deg.to(torch.int32)
     css_need = (css_ok & live2[:, None] & (d[:, None] - css_dec - 1 >= 1)).to(
         torch.int32
     )
@@ -297,12 +340,16 @@ def _probe_level_plain(g: Tables, f: Items, q_found: Tensor, q_subj: Tensor, *,
     for k in range(Kt):
         tn = _node_lookup(g, ns, obj, ttu_via[:, k])
         ttu_nodes.append(tn)
-        ttu_degs.append(torch.where(ttu_ok[:, k], _row_deg(g, tn), 0).to(torch.int32))
+        deg_k = torch.where(ttu_ok[:, k], _row_deg(g, tn), 0)
+        if "ov_dirty" in g:
+            deg_k, nd = _overlay_deg(g, tn, deg_k)
+            q_dirty = _scatter_or(q_dirty, qc, ttu_ok[:, k] & nd)
+        ttu_degs.append(deg_k.to(torch.int32))
     seg_len = torch.stack(
         [exp_deg] + [css_need[:, k] for k in range(Kc)] + ttu_degs, dim=1
     )
     seg_cum = torch.cumsum(seg_len, dim=1, dtype=torch.int32)
-    return q_found, LevelProbe(
+    return q_found, q_dirty, LevelProbe(
         node=node,
         exp_deg=exp_deg,
         ttu_node=torch.stack(ttu_nodes, dim=1),
@@ -443,18 +490,19 @@ def _expand_children_plain(g: Tables, f: Items, lv: LevelProbe, offsets, parent,
 
 
 def expand_phase(g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
-                 q_subj: Tensor, *, arena: int, max_width: int,
+                 q_dirty: Tensor, q_subj: Tensor, *, arena: int, max_width: int,
                  probe_only: bool = False):
     """Probes + child construction of one level (the JAX ``expand_phase``).
-    Returns (children[arena], q_found', q_over')."""
-    q_found, lv = probe_level(g, f, q_found, q_subj, probe_only=probe_only)
+    Returns (children[arena], q_found', q_over', q_dirty')."""
+    q_found, q_dirty, lv = probe_level(g, f, q_found, q_dirty, q_subj,
+                                       probe_only=probe_only)
     if probe_only:
-        return Items.dead(arena, f.qid.device), q_found, q_over
+        return Items.dead(arena, f.qid.device), q_found, q_over, q_dirty
     offsets, _total, parent, ordinal = arena_assign(lv.counts, arena)
     children, q_over = expand_children(
         g, f, lv, offsets, parent, ordinal, q_found, q_over, max_width=max_width
     )
-    return children, q_found, q_over
+    return children, q_found, q_over, q_dirty
 
 
 # -- dedup + compaction into the next frontier (K5) ----------------------------
@@ -582,24 +630,31 @@ def _pack_scatter_plain(children: Items, q_found, q_over, *, frontier: int,
     return out, q_over
 
 
-def pack_verdicts(q_found: Tensor, q_over: Tensor, *, out: Tensor) -> None:
+def pack_verdicts(q_found: Tensor, q_over: Tensor, q_dirty: Tensor, *,
+                  out: Tensor) -> None:
     """Write the verdict byte of each query into ``out`` (uint8[Q]):
-    bit0 found, bit1 over; bit2 (dirty) needs the write overlay and is 0."""
+    bit0 found, bit1 over, bit2 dirty (an expansion needed a row the
+    overlay marked stale)."""
     if q_found.device.type == "cpu":
-        _pack_verdicts_plain(q_found, q_over, out=out)
+        _pack_verdicts_plain(q_found, q_over, q_dirty, out=out)
         return
     nq = q_found.shape[0]
     dev = q_found.device
     kernels.require(q_found, torch.int32, "q_found", shape=(nq,))
     kernels.require(q_over, torch.int32, "q_over", shape=(nq,), device=dev)
+    kernels.require(q_dirty, torch.int32, "q_dirty", shape=(nq,), device=dev)
     kernels.require(out, torch.uint8, "out", shape=(nq,), device=dev)
     kernels.launch("pack", "pack_verdicts", kernels.ptr(q_found),
-                   kernels.ptr(q_over), nq, kernels.ptr(out), kernels.stream())
+                   kernels.ptr(q_over), kernels.ptr(q_dirty), nq,
+                   kernels.ptr(out), kernels.stream())
     kernels.LAUNCHES["pack_verdicts"] += 1
 
 
-def _pack_verdicts_plain(q_found: Tensor, q_over: Tensor, *, out: Tensor) -> None:
-    out.copy_((q_found != 0).to(torch.uint8) | ((q_over != 0).to(torch.uint8) << 1))
+def _pack_verdicts_plain(q_found: Tensor, q_over: Tensor, q_dirty: Tensor, *,
+                         out: Tensor) -> None:
+    out.copy_((q_found != 0).to(torch.uint8)
+              | ((q_over != 0).to(torch.uint8) << 1)
+              | ((q_dirty != 0).to(torch.uint8) << 2))
 
 
 # -- the level schedule and the batch loop -------------------------------------
@@ -731,9 +786,9 @@ def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
         torch.empty(Packed.occ_offset(q) + 4 * levels, dtype=torch.uint8, device=dev),
         q, levels,
     )
-    q_found, q_over = _fast_pass(ops, g, qp, qp[5], sched, max_width=max_width,
-                                 occ=res.occ())
-    ops.pack_verdicts(q_found, q_over, out=res.codes())
+    q_found, q_over, q_dirty = _fast_pass(ops, g, qp, qp[5], sched,
+                                          max_width=max_width, occ=res.occ())
+    ops.pack_verdicts(q_found, q_over, q_dirty, out=res.codes())
     return res
 
 
@@ -744,7 +799,7 @@ def _fast_pass(ops: _Ops, g: Tables, qp: Tensor, act: Tensor, sched, *,
     (int32[Q]) and the levels of ``sched`` (the JAX ``_fused_body``):
     roots, then every level, enqueued with no host sync.  ``occ``
     (int32[len(sched)]) receives the live items entering each level.
-    Returns (q_found, q_over), int32[Q]."""
+    Returns (q_found, q_over, q_dirty), int32[Q]."""
     ns_dim, rel_dim, _, _ = _dims(g)
     nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
     q = qp.shape[1]
@@ -756,22 +811,24 @@ def _fast_pass(ops: _Ops, g: Tables, qp: Tensor, act: Tensor, sched, *,
     f, q_found, q_over, q_subj = ops.init_state(
         qp, frontier=sched[0][0], levels=len(sched), occ_out=occ[0:1], act=act
     )
-    return _level_loop(ops, g, f, q_found, q_over, q_subj, sched,
-                       max_width=max_width, occ=occ)
+    return _level_loop(ops, g, f, q_found, q_over, torch.zeros_like(q_over),
+                       q_subj, sched, max_width=max_width, occ=occ)
 
 
 def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
-                q_subj: Tensor, sched, *, max_width: int, occ: Tensor):
+                q_dirty: Tensor, q_subj: Tensor, sched, *, max_width: int,
+                occ: Tensor):
     """Every level of a BFS from the level-0 frontier ``f`` (the batch's
     roots, or the algebra's leaf buffer), enqueued with no host sync.
     ``occ[i + 1]`` receives the live items entering level ``i + 1`` (the
-    caller writes ``occ[0]``).  Returns (q_found, q_over)."""
+    caller writes ``occ[0]``).  Returns (q_found, q_over, q_dirty)."""
     ns_dim, rel_dim, _, _ = _dims(g)
     nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
     levels = len(sched)
     for i, (_f, a) in enumerate(sched):
         last = i == levels - 1
-        q_found, lv = ops.probe_level(g, f, q_found, q_subj, probe_only=last)
+        q_found, q_dirty, lv = ops.probe_level(g, f, q_found, q_dirty, q_subj,
+                                               probe_only=last)
         if last:
             break  # the final level is probe-only: no children to pack
         offsets, _total, parent, ordinal = ops.arena_assign(lv.counts, a)
@@ -783,4 +840,4 @@ def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
             children, q_found, q_over, frontier=sched[i + 1][0], nsb=nsb,
             relb=relb, occ_out=occ[i + 1: i + 2],
         )
-    return q_found, q_over
+    return q_found, q_over, q_dirty

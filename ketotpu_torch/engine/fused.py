@@ -11,7 +11,8 @@ run as one wave of device work, enqueued with no host sync:
 * **tier 1** — the pure-OR BFS (``fastpath._fast_pass`` and its
   kernels) over the rows still active, then ``retry_lanes`` masked re-runs
   over the full Q at the retry schedule; :func:`wave_lane` keeps the
-  monotone found bits and the next lane's active row;
+  monotone found bits, the next lane's active row and the fallback row
+  (rows still over, and first-pass rows left unfound by a dirty row);
 * **tier 2** — the AND/NOT program (``algebra._run_general`` and its
   kernels) over the general rows at Q = the wave's rows, plus one masked
   retry at the retry shapes; :func:`wave_gen_lane` builds the retry's
@@ -26,7 +27,7 @@ bits   per-row meaning (first Q entries)
 =====  ==========================================================
 0-1    general R_* verdict code (post-retry)
 2      general over (post-retry, folds retry dirty/ERR)
-3      general dirty (always 0 until the write overlay is ported)
+3      general dirty (the program needed a row the overlay marked stale)
 4      fast found (monotone across retry lanes)
 5      fast fallback (still over after the retry lanes)
 6      leopard answered
@@ -136,43 +137,59 @@ def _wave_tier0_plain(qpack: Tensor, leo, *, depth_slack: int, fast: bool):
 # -- tier 1's lanes ----------------------------------------------------------------
 
 
-def wave_lane(act: Tensor, pfound: Tensor, pover: Tensor,
-              found: Optional[Tensor], retried: Optional[Tensor], *,
-              more: bool):
+def wave_lane(act: Tensor, pfound: Tensor, pover: Tensor, pdirty: Tensor,
+              found: Optional[Tensor], retried: Optional[Tensor],
+              fb: Optional[Tensor], *, more: bool):
     """After one tier-1 pass over the active rows ``act`` with results
-    ``pfound`` / ``pover`` (``fused.py:158-173``): returns (found, unres,
-    retried): ``found`` the pass's own found bits after the first pass
-    (``found`` None), else ``found | act & pfound``; ``unres`` the rows
-    still over and not found (the next lane's active row, or the fast
-    fallback after the last pass; the dirty bit is 0 until the write
-    overlay is ported); ``retried`` with ``unres`` added when ``more``
-    lanes follow."""
+    ``pfound`` / ``pover`` / ``pdirty`` (``fused.py:158-173``): returns
+    (found, unres, retried, fb).  After the first pass (``found``,
+    ``retried`` and ``fb`` None): ``found`` the pass's own found bits,
+    ``unres`` the rows over, not found and not dirty (a retry would read
+    the same stale row), ``fb`` the dirty unfound rows plus ``unres``.
+    After a retry lane: ``found | act & pfound``, ``unres`` the lane's
+    rows still over or dirty and not found, ``fb`` the earlier dirty rows
+    (``fb & ~act``) plus ``unres``.  ``unres`` is the next lane's active
+    row; ``fb`` after the last pass is the fast fallback,
+    ``(fast_act & dirty1 & ~found1) | unres``.  ``retried`` gains
+    ``unres`` when ``more`` lanes follow."""
     if act.device.type == "cpu":
-        return _wave_lane_plain(act, pfound, pover, found, retried, more=more)
+        return _wave_lane_plain(act, pfound, pover, pdirty, found, retried, fb,
+                                more=more)
     dev = act.device
     q = act.shape[0]
     for t, name in ((act, "act"), (pfound, "pfound"), (pover, "pover"),
-                    (found, "found"), (retried, "retried")):
+                    (pdirty, "pdirty"), (found, "found"), (retried, "retried"),
+                    (fb, "fb")):
         if t is not None:
             kernels.require(t, _I32, name, shape=(q,), device=dev)
-    outs = [torch.empty(q, dtype=_I32, device=dev) for _ in range(3)]
+    if (found is None) != (retried is None) or (found is None) != (fb is None):
+        raise ValueError("found, retried and fb come together")
+    outs = [torch.empty(q, dtype=_I32, device=dev) for _ in range(4)]
     kernels.launch(
         "wave", "wave_lane", kernels.ptr(act), kernels.ptr(pfound),
-        kernels.ptr(pover), kernels.ptr(found), kernels.ptr(retried), q,
-        int(more), *map(kernels.ptr, outs), kernels.stream(),
+        kernels.ptr(pover), kernels.ptr(pdirty), kernels.ptr(found),
+        kernels.ptr(retried), kernels.ptr(fb), q, int(more),
+        *map(kernels.ptr, outs), kernels.stream(),
     )
     kernels.LAUNCHES["wave_lane"] += 1
     return tuple(outs)
 
 
-def _wave_lane_plain(act, pfound, pover, found, retried, *, more: bool):
-    a, f, o = act != 0, pfound != 0, pover != 0
-    found_out = f if found is None else (found != 0) | (a & f)
-    unres = a & o & ~f
+def _wave_lane_plain(act, pfound, pover, pdirty, found, retried, fb, *,
+                     more: bool):
+    a, f, o, d = act != 0, pfound != 0, pover != 0, pdirty != 0
+    if found is None:
+        found_out = f
+        unres = a & o & ~f & ~d
+        fb_out = (a & d & ~f) | unres
+    else:
+        found_out = (found != 0) | (a & f)
+        unres = a & (o | d) & ~f
+        fb_out = ((fb != 0) & ~a) | unres
     ret = torch.zeros_like(a) if retried is None else retried != 0
     if more:
         ret = ret | unres
-    return _i32(found_out), _i32(unres), _i32(ret)
+    return _i32(found_out), _i32(unres), _i32(ret), _i32(fb_out)
 
 
 # -- tier 2's retry lane -------------------------------------------------------------
@@ -364,20 +381,22 @@ def run_wave(ops: WaveOps, g: Tables, qpack, *, fast_sched, retry_sched,
     found = fast_fb = retried = focc = None
     if fast_sched is not None:
         focc = torch.zeros(len(fast_sched), dtype=_I32, device=dev)
-        pfound, pover = fp._fast_pass(ops.fast, g, qp, fact, fast_sched,
-                                      max_width=max_width, occ=focc)
-        found, unres, retried = ops.lane(fact, pfound, pover, None, None,
-                                         more=retry_lanes > 0)
+        pfound, pover, pdirty = fp._fast_pass(ops.fast, g, qp, fact, fast_sched,
+                                              max_width=max_width, occ=focc)
+        found, unres, retried, fb = ops.lane(fact, pfound, pover, pdirty, None,
+                                             None, None, more=retry_lanes > 0)
         for lane in range(retry_lanes):
             # the lane's active rows are the last pass's unresolved ones;
             # its occupancy is not returned
             act = unres
             rocc = torch.zeros(len(retry_sched), dtype=_I32, device=dev)
-            rfound, rover = fp._fast_pass(ops.fast, g, qp, act, retry_sched,
-                                          max_width=max_width, occ=rocc)
-            found, unres, retried = ops.lane(act, rfound, rover, found, retried,
-                                             more=lane + 1 < retry_lanes)
-        fast_fb = unres
+            rfound, rover, rdirty = fp._fast_pass(
+                ops.fast, g, qp, act, retry_sched, max_width=max_width,
+                occ=rocc)
+            found, unres, retried, fb = ops.lane(
+                act, rfound, rover, rdirty, found, retried, fb,
+                more=lane + 1 < retry_lanes)
+        fast_fb = fb
 
     gcodes = gbits = gocc = None
     if gen is not None:

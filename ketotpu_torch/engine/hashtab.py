@@ -275,6 +275,128 @@ def build_table(
     return out
 
 
+def splice_table(
+    t: Dict[str, np.ndarray],
+    rm_a: np.ndarray,
+    rm_b: np.ndarray,
+    add_a: np.ndarray,
+    add_b: np.ndarray,
+    add_val: Optional[np.ndarray] = None,
+    *,
+    val_remap: Optional[np.ndarray] = None,
+) -> Optional[Dict[str, np.ndarray]]:
+    """Incrementally edit a built table without re-hashing its entries.
+
+    Removes ONE entry per (rm_a, rm_b) key (duplicate keys remove distinct
+    entries), inserts the add keys into their buckets, and optionally maps
+    every surviving payload through ``val_remap`` (int32 gather — the fold
+    renumbers node ids).  The salt, bucket count, capacity and probe-depth
+    (``pw``) shapes are all preserved, so a spliced table re-ships to the
+    device without changing the jitted program's pytree.
+
+    Returns None when the edit cannot keep that shape contract — more
+    entries than capacity, a bucket growing past the recorded probe
+    rounds, or a removal key that is not resident (inconsistent caller
+    bookkeeping).  The caller falls back to a full ``build_table``.
+    """
+    salt_i = int(t["meta"][0])
+    mask = np.uint32(int(t["meta"][1]))
+    buckets = int(mask) + 1
+    cap = len(t["key_a"])
+    pw = t["pw"].shape[0]
+    ptr = t["ptr"]
+    n_old = int(ptr[-1])
+    n_rm, n_add = len(rm_a), len(add_a)
+    n_new = n_old - n_rm + n_add
+    if n_new > cap:
+        return None
+    salt = _SALTS[salt_i]
+    ka, kb = t["key_a"], t["key_b"]
+
+    if n_rm:
+        h_rm = (
+            _mix_np(np.asarray(rm_a), np.asarray(rm_b), salt) & mask
+        ).astype(np.int64)
+        del_pos = np.empty(n_rm, np.int64)
+        used: set = set()
+        rm_a_l = np.asarray(rm_a).tolist()
+        rm_b_l = np.asarray(rm_b).tolist()
+        for i in range(n_rm):
+            b = int(h_rm[i])
+            found = -1
+            for j in range(int(ptr[b]), int(ptr[b + 1])):
+                if j not in used and ka[j] == rm_a_l[i] and kb[j] == rm_b_l[i]:
+                    found = j
+                    break
+            if found < 0:
+                return None
+            used.add(found)
+            del_pos[i] = found
+        del_per_bucket = np.bincount(h_rm, minlength=buckets)
+    else:
+        del_pos = np.zeros(0, np.int64)
+        del_per_bucket = np.zeros(buckets, np.int64)
+
+    if n_add:
+        h_add = (
+            _mix_np(np.asarray(add_a), np.asarray(add_b), salt) & mask
+        ).astype(np.int64)
+        add_per_bucket = np.bincount(h_add, minlength=buckets)
+    else:
+        h_add = np.zeros(0, np.int64)
+        add_per_bucket = np.zeros(buckets, np.int64)
+
+    counts_new = np.diff(ptr.astype(np.int64)) - del_per_bucket + add_per_bucket
+    if n_new and int(counts_new.max()) > pw:
+        return None
+
+    body_sel = np.ones(n_old, bool)
+    body_sel[del_pos] = False
+    cum_del = np.zeros(buckets + 1, np.int64)
+    np.cumsum(del_per_bucket, out=cum_del[1:])
+    ptr_mid = ptr.astype(np.int64) - cum_del
+    # insert each add at its bucket's (post-delete) start; order within a
+    # bucket is free — lookups scan the whole bucket
+    order = np.argsort(h_add, kind="stable")
+    ins_pos = ptr_mid[h_add[order]]
+    a_body = np.insert(ka[:n_old][body_sel], ins_pos,
+                       np.asarray(add_a, np.int32)[order])
+    b_body = np.insert(kb[:n_old][body_sel], ins_pos,
+                       np.asarray(add_b, np.int32)[order])
+    cum_add = np.zeros(buckets + 1, np.int64)
+    np.cumsum(add_per_bucket, out=cum_add[1:])
+    ptr_new = (ptr_mid + cum_add).astype(np.int32)
+
+    out_a = np.empty(cap, np.int32)
+    out_a[:n_new] = a_body
+    out_a[n_new:] = -1
+    out_b = np.empty(cap, np.int32)
+    out_b[:n_new] = b_body
+    out_b[n_new:] = -1
+    out = {
+        "ptr": ptr_new,
+        "key_a": out_a,
+        "key_b": out_b,
+        "meta": t["meta"],
+        "pw": t["pw"],
+    }
+    tv = t.get("val")
+    if tv is not None:
+        v_body = tv[:n_old][body_sel]
+        if val_remap is not None:
+            v_body = val_remap[v_body]
+        v_ins = (
+            np.asarray(add_val, np.int32)[order]
+            if add_val is not None else np.full(n_add, -1, np.int32)
+        )
+        v_body = np.insert(v_body, ins_pos, v_ins)
+        out_v = np.empty(cap, np.int32)
+        out_v[:n_new] = v_body
+        out_v[n_new:] = -1
+        out["val"] = out_v
+    return out
+
+
 def lookup_np(t: Dict, a: np.ndarray, b: np.ndarray) -> Tuple:
     """Host-side numpy mirror of :func:`lookup`: (val_or_index, found).
 

@@ -149,6 +149,8 @@ class Graph(ctypes.Structure):
         ("row_ptr", _P), ("edge_hi", _P), ("edge_obj", _P),
         ("ns_dim", _I), ("rel_dim", _I), ("kc", _I), ("kt", _I),
         ("n_row_ptr", _I), ("n_edges", _I),
+        ("om", HashTab), ("ovt", HashTab), ("ov_dirty", _P), ("ov_nbase", _P),
+        ("n_dirty", _I), ("has_ov", _I),
     ]
 
 
@@ -180,8 +182,8 @@ class GenState(ctypes.Structure):
 
 _SIGNATURES = {
     "probe": {
-        "probe_level": [Graph, Items, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _I, _P],
+        "probe_level": [Graph, Items, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _P, _I, _P],
     },
     "arena": {
         "arena_assign": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -194,7 +196,7 @@ _SIGNATURES = {
         "pack_scatter": [Items, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, Items, _P, _P],
         "init_state": [_P, _P, _I, _I, Items, _P, _P, _P, _P],
-        "pack_verdicts": [_P, _P, _I, _P, _P],
+        "pack_verdicts": [_P, _P, _P, _I, _P, _P],
     },
     "algebra": {
         "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -202,7 +204,7 @@ _SIGNATURES = {
                           _I, _P],
         "gen_visited": [GenState, _I, _I, _P, _P],
         "gen_collect": [GenState, _P, _P, _P, _P, _P, _P],
-        "gen_up": [GenState, _I, _I, _I, _I, _I, _P, _P, _P],
+        "gen_up": [GenState, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "gen_pack": [GenState, _P],
     },
     "leopard": {
@@ -210,7 +212,8 @@ _SIGNATURES = {
     },
     "wave": {
         "wave_tier0": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-        "wave_lane": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "wave_lane": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                      _P],
         "wave_gen_lane": [_P, _P, _I, _P, _P, _P, _P],
         "wave_pack": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     },
@@ -323,6 +326,18 @@ def _graph(g: Dict[str, torch.Tensor]) -> Graph:
     def t(name, dtype, shape):
         return ptr(require(g[name], dtype, name, shape=shape, device=device))
 
+    overlay = {}
+    if "om_ptr" in g:
+        # the delta overlay (delta.overlay_arrays): the engine ships it with
+        # every projection, empty until the first write
+        n_dirty = g["ov_dirty"].shape[0]
+        overlay = dict(
+            om=_hash_tab(g, "om_", device, True),
+            ovt=_hash_tab(g, "ovt_", device, True),
+            ov_dirty=t("ov_dirty", torch.bool, (n_dirty,)),
+            ov_nbase=t("ov_nbase", torch.int32, (1,)),
+            n_dirty=n_dirty, has_ov=1,
+        )
     return Graph(
         nt=_hash_tab(g, "nt_", device, True),
         mt=_hash_tab(g, "mt_", device, False),
@@ -339,6 +354,7 @@ def _graph(g: Dict[str, torch.Tensor]) -> Graph:
         edge_obj=t("edge_obj", torch.int32, g["edge_hi"].shape),
         ns_dim=ns_dim, rel_dim=rel_dim, kc=kc, kt=kt,
         n_row_ptr=g["row_ptr"].shape[0], n_edges=g["edge_hi"].shape[0],
+        **overlay,
     )
 
 

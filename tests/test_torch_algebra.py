@@ -302,17 +302,19 @@ def test_fast_subrun_matches_jax(graphs):
         subj=qp[3], valid=(qp[5] != 0) & (rng.random(B) < 0.9),
     )
     sched = tfp.level_schedule(B, 256, 512, 3)
-    jfound, jover, _jdirty, jocc = jalg._fast_subrun(
+    jfound, jover, jdirty, jocc = jalg._fast_subrun(
         jg, {k: jnp.asarray(v) for k, v in fb.items()}, sched=sched,
         max_width=MAX_WIDTH)
     tfb = {k: torch.from_numpy(np.array(v)) for k, v in fb.items()}
     leaves = talg._leaf_items(tfb, len(sched))
     tocc = torch.zeros(len(sched), dtype=torch.int32)
     tocc[0] = (leaves.qid >= 0).sum()
-    tfound, tover = talg._fast_subrun(tfp._PLAIN_OPS, tg, leaves, tfb["subj"],
-                                      sched=sched, max_width=MAX_WIDTH, occ=tocc)
+    tfound, tover, tdirty = talg._fast_subrun(
+        tfp._PLAIN_OPS, tg, leaves, tfb["subj"], sched=sched,
+        max_width=MAX_WIDTH, occ=tocc)
     assert np.array_equal(_flags(tfound), _np(jfound))
     assert np.array_equal(_flags(tover), _np(jover))
+    assert np.array_equal(_flags(tdirty), _np(jdirty))
     assert tocc.tolist() == [int(x) for x in jocc]
     assert _np(jfound).any() and not _np(jfound).all()
 

@@ -214,6 +214,9 @@ def test_fixtures_match_jax_engine_and_oracle(case):
 
 
 def test_write_reprojects_before_the_next_batch():
+    """A write reaches the next batch: the engine drains the store's change
+    log before it plans, here through the delta overlay (a membership write
+    on known ids), as the JAX engine does, with no re-projection."""
     js, jm, ts, tm, _queries = _fixture_engines("rewrites")
     teng = TEngine(ts, tm, device="cpu")
     q = TTuple.from_string("File:keto/README.md#view@eve")
@@ -222,10 +225,11 @@ def test_write_reprojects_before_the_next_batch():
     js.write_relation_tuples(JTuple.from_string("Group:dev#members@eve"))
     assert teng.batch_check([q]) == [True]
     assert JOracle(js, jm).check_is_member(JTuple.from_string(str(q)))
-    assert teng.rebuilds == 2
+    assert (teng.rebuilds, teng.overlay_applies) == (1, 1)
+    assert teng.last_write["tier"] == "overlay"
     ts.delete_relation_tuples(TTuple.from_string("Group:dev#members@eve"))
     assert teng.check(q) is False
-    assert teng.rebuilds == 3
+    assert (teng.rebuilds, teng.overlay_applies) == (1, 2)
 
 
 def test_large_batch_chunks_in_order():

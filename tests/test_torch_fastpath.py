@@ -127,16 +127,18 @@ def test_expand_and_pack_levels_match_jax(synth):
     _assert_items(f, _frontier_dict(js))
     assert int(occ[0]) == len(queries)
     explored = 0
+    qd = torch.zeros_like(qo)
     for lvl in range(levels):
         last = lvl == levels - 1
         a = 8 if last else arena
-        jch, jqf, jqo, _jqd = expand(jg, js, arena=a, max_width=MAX_WIDTH,
-                                     probe_only=last)
-        ch, qf, qo = tfp.expand_phase(tg, f, qf, qo, qs, arena=a,
-                                      max_width=MAX_WIDTH, probe_only=last)
+        jch, jqf, jqo, jqd = expand(jg, js, arena=a, max_width=MAX_WIDTH,
+                                    probe_only=last)
+        ch, qf, qo, qd = tfp.expand_phase(tg, f, qf, qo, qd, qs, arena=a,
+                                          max_width=MAX_WIDTH, probe_only=last)
         _assert_items(ch, jch)
         assert np.array_equal(qf.numpy().astype(bool), _np(jqf))
         assert np.array_equal(qo.numpy().astype(bool), _np(jqo))
+        assert np.array_equal(qd.numpy().astype(bool), _np(jqd))
         explored += int((ch.qid >= 0).sum())
         if last:
             break
@@ -145,7 +147,7 @@ def test_expand_and_pack_levels_match_jax(synth):
                                rel_dim=rel_dim)
         _assert_items(f, _frontier_dict(jnxt))
         assert np.array_equal(qo.numpy().astype(bool), _np(jqo))
-        js = dict(jnxt, q_found=jqf, q_over=jqo, q_subj=js["q_subj"])
+        js = dict(jnxt, q_found=jqf, q_over=jqo, q_dirty=jqd, q_subj=js["q_subj"])
     assert explored > 0
 
 

@@ -268,3 +268,103 @@ def test_fused_engine_on_the_card_matches_the_oracle(fused_engine):
     assert eng.leopard_answered > 0
     assert eng.fused_waves == eng.fused_d2h_fetches
     assert all(kernels.LAUNCHES[k] for k in chip_smoke.WAVE_KERNELS)
+
+
+# -- the delta overlay (K2's overlay branches) -------------------------------
+
+
+@pytest.fixture(scope="module")
+def written():
+    """A fused engine over its own small synth graph after chip_smoke's
+    write batches a1, b and c, drained in one batch: the overlay holds
+    added and deleted pairs, a virtual node and dirty rows.  Returns (graph,
+    engine, the rows those writes touched)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ketotpu_torch.api.types import RelationTuple
+
+    g = build_synth_columnar(seed=1, **SMALL_SYNTH)
+    eng = DeviceCheckEngine(g.store, g.manager, fused_dispatch=True)
+    eng.batch_check(synth_queries(g, 64, seed=3))
+    rows = []
+    for name, ins, dels, touched, _tier, _leo in chip_smoke.write_script(
+            g, np.random.default_rng(43)):
+        if name in ("a1", "b", "c"):
+            g.store.transact_relation_tuples(insert=ins, delete=dels)
+            rows += [RelationTuple.from_string(r) for r in touched]
+    eng.batch_check(rows)
+    assert eng.overlay_applies == 1 and eng.rebuilds == 1
+    st = eng._overlay
+    assert st.new_nodes and st.dirty_nodes and st.pair_net
+    return g, eng, rows + synth_queries_mixed(g, 300, seed=7)
+
+
+def test_overlay_kernels_match_their_plain_versions(written):
+    """probe_level, pack_verdicts, gen_classify and wave_lane (and every
+    other kernel of the three tiers) call by call against their plain
+    versions over tables with a non-empty overlay, dirty bits included."""
+    g, eng, rows = written
+    rec = chip_smoke.Recorder()
+    tables = eng.device_tables()
+    qpack, err, general = eng.pack_queries(rows)
+    for boost in (1, eng.retry_scale):
+        shape = (qpack.shape[1], boost * eng.frontier, boost * eng.arena, boost)
+        codes, _occ = chip_smoke.check_kernels(
+            tables, qpack, chip_smoke.schedule(shape, eng.max_depth),
+            eng.max_width, rec, ("t", shape))
+        assert ((codes[: len(rows)] >> 2) & 1).any()  # dirty rows
+    _gi, _a, _fb, stats = chip_smoke.replay_general(eng, tables, rows, rec, "g")
+    assert stats["general"] and stats["dirty"]
+    plan = eng.plan_wave(rows)
+    chip_smoke.check_wave(plan, rec, ("w", chip_smoke.wave_key(plan)))
+    assert all(e == 0 for e in rec.err.values())
+    for k in chip_smoke.OVERLAY_KERNELS:
+        assert rec.calls[k], k
+
+
+def test_written_engine_on_the_card_matches_the_oracle(written):
+    g, eng, rows = written
+    fb = eng.fallbacks
+    assert eng.batch_check(rows) == [eng.oracle.check_is_member(q) for q in rows]
+    assert eng.fallbacks > fb  # dirty rows went to the oracle
+    eng.fused_dispatch = False
+    try:
+        assert eng.batch_check(rows) == [eng.oracle.check_is_member(q)
+                                         for q in rows]
+    finally:
+        eng.fused_dispatch = True
+
+
+def test_overflowing_overlay_folds_on_the_card():
+    """Past ``max_overlay_pairs`` the changes since the base fold into it:
+    no re-projection, the device shapes unchanged, verdicts exact, and
+    every kernel of the three tiers equal to its plain version on the
+    folded tables (base hash tables spliced in place)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ketotpu_torch.api.types import RelationTuple
+
+    g = build_synth_columnar(seed=2, **SMALL_SYNTH)
+    eng = DeviceCheckEngine(g.store, g.manager, fused_dispatch=True)
+    eng.max_overlay_pairs = 64
+    eng.batch_check(synth_queries(g, 64, seed=3))
+    shapes = eng._array_shapes(eng.device_tables())
+    burst = [RelationTuple.from_string(f"Group:g{i % 200}#members@u{7 * i + 1}")
+             for i in range(100)]
+    g.store.transact_relation_tuples(insert=burst)
+    rows = burst + synth_queries(g, 200, seed=5)
+    assert eng.batch_check(rows) == [eng.oracle.check_is_member(q) for q in rows]
+    assert (eng.folds, eng.rebuilds, eng.last_write["tier"]) == (1, 1, "fold")
+    assert eng._array_shapes(eng.device_tables()) == shapes
+    rec = chip_smoke.Recorder()
+    tables = eng.device_tables()
+    qpack, _err, _general = eng.pack_queries(rows)
+    shape = (qpack.shape[1], eng.frontier, eng.arena, 1)
+    chip_smoke.check_kernels(tables, qpack,
+                             chip_smoke.schedule(shape, eng.max_depth),
+                             eng.max_width, rec, ("t", shape))
+    chip_smoke.replay_general(eng, tables, rows, rec, "g")
+    chip_smoke.replay_waves(eng, rows, rec, "w")
+    assert all(e == 0 for e in rec.err.values())
+    for k in ("probe_level", "pack_verdicts", "wave_lane"):
+        assert rec.calls[k], k

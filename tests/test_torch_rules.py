@@ -80,7 +80,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert ordinal.tolist() == [0, 1, 0, 1, 2, 0, 0, 0]
     flags = torch.zeros(4, dtype=torch.int32)
     out = torch.empty(4, dtype=torch.uint8)
-    tfp.pack_verdicts(flags + 1, flags, out=out)
+    tfp.pack_verdicts(flags + 1, flags, flags, out=out)
     assert out.tolist() == [1, 1, 1, 1]
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
