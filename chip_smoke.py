@@ -5,9 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build the CUDA kernels (tier 0, tier 1, the tier-2 algebra and the
-   fused wave) from ``ketotpu_torch/csrc`` (one ``nvcc`` per source, all
-   at once) into ``build/ketotpu_torch/``;
+1. build the CUDA kernels (tier 0, tier 1, the tier-2 algebra, the
+   fused wave and the Expand walk) from ``ketotpu_torch/csrc`` (one
+   ``nvcc`` per source, all at once) into ``build/ketotpu_torch/``;
 2. build the 10M-tuple synth graph, project and upload it, then hold every
    tier-1 kernel against its plain PyTorch version on the same CUDA
    tensors (tolerance 0), level by level, at every shape the engine
@@ -82,9 +82,30 @@ Phases, in order; any failure raises and exits non-zero:
    expected ones, the write-to-verdict wall split into its steps, and on
    the tables that check read every tier-1, tier-2 and wave kernel held
    against its plain version (the overlay's branches and dirty bits);
+   after (c), and again after (d), ``batch_expand`` of the subject sets
+   the writes touched (a1's groups, b's virtual Doc, c's dirty group, 64
+   of d's groups), the trees against the oracle's on the live store and
+   the Expand kernels against their plain versions on the served tables;
    then the ``ov_dirty`` upload, a full re-projection plus closure build
    for comparison, and the overlay kernels timed on (c)'s tables (the
-   kernel line's ``overlay_path``).
+   kernel line's ``overlay_path``);
+13. Expand on path A's engine (``bench.py:934-982``): 512 ``Doc#parents``
+   roots drawn with ``default_rng(11)`` at depth 5, the expand-only
+   upload, a warm batch, then timed batches (trees/s, oracle fallbacks,
+   host ms per phase, launches per batch, the schedule) with the launch
+   counters reset just before each; 20 single-root calls (p50, p99); the
+   walk step by step with ``expand_roots`` / ``expand_level`` (and K4)
+   held against their plain versions at every shape the timed runs used,
+   and whole (every level record and ``over``); 64 sampled trees and 128
+   ``Group#members`` / ``Folder#viewers`` trees against the oracle's (a
+   group has about 48 members, past the default fan-out 16: the over
+   roots go to the oracle; their walk at 4x fan-out and cap, as a retry
+   on the card would run it, is held too, its trees against the oracle's
+   and its time against the oracle's, alternated); a cap at which the
+   walk overflows, where exactly the over roots go to the oracle; then
+   both kernels timed as in phase 11 (no library call), on the
+   Doc#parents walk and on the wide one (the kernel line's
+   ``wide_path``).
 
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
@@ -93,6 +114,7 @@ imports nothing of JAX and nothing of the ``ketotpu`` package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -152,7 +174,15 @@ WAVE_KERNELS = {
     "wave_gen_lane": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
     "wave_pack": ("ketotpu_torch/csrc/wave.cu", "ketotpu/engine/fused.py:85"),
 }
-ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS)
+#: the Expand walk (K9): CUDA source and the JAX function each replaces
+EXPAND_KERNELS = {
+    "expand_roots": ("ketotpu_torch/csrc/expand.cu",
+                     "ketotpu/engine/expand_device.py:69"),
+    "expand_level": ("ketotpu_torch/csrc/expand.cu",
+                     "ketotpu/engine/expand_device.py:69"),
+}
+ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS,
+               *EXPAND_KERNELS)
 #: the tier-1 kernels a fused wave launches (its results stay on the card:
 #: no pack_verdicts)
 WAVE_FAST_KERNELS = ("init_state", "probe_level", "arena_assign",
@@ -181,13 +211,15 @@ def card_line() -> str:
 
 # -- phases 2 and 6: every kernel against its plain version ---------------------
 
-#: keyword arguments a tier-1 wrapper writes into (each side gets its own buffer)
-OUT_KW = ("occ_out", "out")
+#: keyword arguments a tier-1 or Expand wrapper writes into (each side gets
+#: its own copy: ``over`` is set in place)
+OUT_KW = ("occ_out", "out", "over")
 
 
 def pairs():
     """kernel wrapper name -> (wrapper, plain version): same signature."""
     from ketotpu_torch.engine import algebra as alg
+    from ketotpu_torch.engine import expand_device as xd
     from ketotpu_torch.engine import fastpath as fp
     from ketotpu_torch.engine import xutil
 
@@ -195,6 +227,8 @@ def pairs():
     from ketotpu_torch.leopard import device as leodev
 
     return {
+        "expand_roots": (xd.expand_roots, xd._expand_roots_plain),
+        "expand_level": (xd.expand_level, xd._expand_level_plain),
         "leo_probe": (leodev.probe, leodev._probe_plain),
         "wave_tier0": (fdx.wave_tier0, fdx._wave_tier0_plain),
         "wave_lane": (fdx.wave_lane, fdx._wave_lane_plain),
@@ -304,6 +338,16 @@ class Recorder:
                            step("wave_gen_lane"), step("wave_pack"), fp._OPS,
                            alg._OPS)
 
+    def expand_ops(self):
+        """The Expand walk's steps (K9 and its K4), each through :meth:`run`."""
+        from ketotpu_torch.engine import expand_device as xd
+
+        def step(name):
+            return lambda *a, **k: self.run(name, *a, **k)
+
+        return xd.XOps(step("expand_roots"), step("expand_level"),
+                       step("arena_assign"))
+
     def shapes(self, dataset):
         """The dispatch shapes this recorder held ``dataset`` at."""
         return {tag[1] for calls in self.calls.values()
@@ -390,6 +434,8 @@ def shape_name(shape) -> str:
         return "/".join(parts)
     if shape[0] == "leo":
         return f"leo/Q{shape[1]}/cap{shape[2]}"
+    if shape[0] == "expand":
+        return f"expand/R{shape[1]}/" + "x".join(map(str, shape[2]))
     if shape[0] == "gen":
         _, q, boost, (sizes, fast_b, fast_sched, vcap) = shape
         return (f"general/Q{q}/D{len(sizes)}/T{q + sum(sizes)}/B{fast_b}/"
@@ -1019,6 +1065,42 @@ def kernel_bytes(name, args, kw, g) -> int:
     if name == "pack_verdicts":
         nq = args[0].shape[0]
         return 3 * 4 * nq + nq
+    if name == "expand_roots":
+        from ketotpu_torch.engine import expand_device as xd
+
+        g_, roots, width = args
+        known = int((roots[:3] >= 0).all(0).sum())  # ids the vocab knows
+        found = int((xd._expand_roots_plain(g_, roots, width)[0][2] >= 0).sum())
+        # the root block in; per known root one node probe and, per root
+        # with a node, its two member row pointers; the record, counts and
+        # ancestor column written
+        return (5 * 4 * roots.shape[1] + 16 * known + 8 * found
+                + 4 * width * (7 + 1 + 1))
+    if name == "expand_level":
+        _g, rec_, counts, anc, off, par, _ordn = args
+        C, A, k = rec_.shape[1], par.shape[0], anc.shape[0]
+        pos = counts > 0
+        fits = (off + counts) <= A
+        flag = pos & ~fits
+        parents = par[par >= 0].long()
+        kept = parents[fits[parents]]
+        n_par, n_kept_par = int(parents.unique().numel()), int(kept.unique().numel())
+        out, nodes = expand_level_counts(args, kw)
+        # every item's count; the offset of each item with members and the
+        # root of each that overflowed; one over bit set per such root;
+        # the slot map in; per distinct parent of a slot its d, per
+        # distinct kept parent its node, root, k ancestor columns and
+        # member row pointer; per kept slot its member subject and
+        # namespace decode; per expandable child its object and relation
+        # and one node probe, per child with a node its member row
+        # pointers; the record, the next counts (not at the last level)
+        # and k + 1 ancestor columns written
+        b = 4 * C + 4 * int(pos.sum()) + 4 * int(flag.sum())
+        b += 4 * int(rec_[5][flag].unique().numel()) + 8 * A
+        b += 4 * n_par + 4 * n_kept_par * (k + 3) + 8 * int(kept.numel())
+        b += out * (8 + 16) + nodes * 8
+        b += 4 * A * (7 + (0 if kw.get("last") else 1) + k + 1)
+        return b
     if name == "leo_probe":
         sets, elts, _hops, q_set, q_elt = args
         return search_bytes(sets, elts, q_set, q_elt) + 8 * q_set.shape[0]
@@ -1121,6 +1203,16 @@ def kernel_bytes(name, args, kw, g) -> int:
     if name == "gen_pack":
         return st.q * (4 + 4 + 4 + 1)
     raise KeyError(name)
+
+
+def expand_level_counts(args, kw):
+    """(expandable children, expandable children with a node) of one
+    ``expand_level`` call, from its plain version's outputs."""
+    from ketotpu_torch.engine import expand_device as xd
+
+    rec, _counts, _anc = xd._expand_level_plain(
+        *args, over=kw["over"].clone(), last=kw.get("last", False))
+    return int(rec[6].sum()), int((rec[2] >= 0).sum())
 
 
 #: one PyTorch call that computes the same function, where there is one
@@ -1627,10 +1719,13 @@ def write_phase(graph, leng, samples, rec: Recorder):
     from ketotpu_torch.engine.device import upload
     from ketotpu_torch.engine.oracle import CheckEngine
 
+    from ketotpu_torch.api.types import SubjectSet
+
     rng = np.random.default_rng(SEED_WRITES)
     store = graph.store
     oracle = CheckEngine(store, graph.manager)
     report = {}
+    touched = {}  # the subject sets the writes touched, in write order
     c_tables = None  # batch c's tables: the overlay kernels are timed there
     for name, ins, dels, rows, tier, leo_want in write_script(graph, rng):
         if leo_want is None:
@@ -1723,6 +1818,17 @@ def write_phase(graph, leng, samples, rec: Recorder):
                             if tier == "fold" else None),
         )
         log(f"[12] write batch {name}: {json.dumps(report[name])}")
+        # Expand of the roots the writes touched: after c on the overlay
+        # (a virtual node, a dirty row), after d on the folded base
+        mine = {}
+        for t in [*ins, *dels]:
+            mine.setdefault(SubjectSet(t.namespace, t.object, t.relation), None)
+        if name == "d":
+            expand_written(leng, graph, [*touched, *list(mine)[:EXPAND_WRITE_ROOTS]],
+                           rec, name)
+        touched.update(mine)
+        if name == "c":
+            expand_written(leng, graph, list(touched), rec, name)
     # the overlay's upload: ov_dirty alone, and the whole overlay, re-shipped
     # as the engine ships it after a write (median of 5, synchronized)
     ov = dl.overlay_arrays(leng._overlay, leng._snap,
@@ -1773,6 +1879,400 @@ def write_phase(graph, leng, samples, rec: Recorder):
                 f"calls")
     return SimpleNamespace(report=report, upload_ms=up, full=full,
                            timed=timed_ov)
+
+# -- phase 13: Expand (K9) ------------------------------------------------------
+
+#: bench.py:934-982, the JAX package's config #3: depth-5 Expand of 512
+#: Doc#parents roots drawn with default_rng(11) over the 10M graph
+EXPAND_ROOTS, EXPAND_DEPTH, SEED_EXPAND = 512, 5, 11
+EXPAND_SAMPLE = 64  # timed roots whose trees are held against the oracle
+EXPAND_LATENCY_N = 20  # single-root calls (bench.py:567-580)
+EXPAND_REPEATS = 3
+EXPAND_OVER_CAP = 256  # a cap at which the 512-root walk overflows
+#: Group#members and Folder#viewers roots each (deeper trees; a group of
+#: the 10M graph has about 48 direct members, past the default fan-out 16)
+EXPAND_WIDE = 64
+EXPAND_WRITE_ROOTS = 64  # of batch d's groups
+#: the over roots' walk at 4x fan-out and cap (a retry on the card, as the
+#: check path's, would run it so)
+EXPAND_WIDE_SCALE = 4
+SEED_EXPAND_SAMPLE = 41
+
+
+class GCPauses:
+    """The interpreter's garbage-collection pauses while registered
+    (``gc.callbacks``): (generation, ms) per collection."""
+
+    def __init__(self):
+        self.pauses = []
+        self._t = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.pauses.append((info["generation"],
+                                round((time.perf_counter() - self._t) * 1e3, 3)))
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def tree_json(t):
+    return None if t is None else t.to_json()
+
+
+def hold_expand(g, vocab, roots, rec: Recorder, dataset, cap=65536,
+                fanout=16):
+    """The Expand walk of ``roots`` at rest depth 5 on the tables ``g``,
+    as the engine enqueues it: step by step with each kernel (K9 and its
+    K4) held against its plain version (tolerance 0), then whole on the
+    kernels and whole on the plain versions, the packed buffers (every
+    level record and ``over``) equal.  Returns the walk's shape and the
+    over bits of the roots."""
+    from ketotpu_torch.engine import expand_device as xd
+
+    block = xd.encode_roots(vocab, roots)
+    block[4, :len(roots)] = EXPAND_DEPTH
+    sched = xd.expand_schedule(block.shape[1], fanout, EXPAND_DEPTH, cap)
+    shape = ("expand", block.shape[1], sched)
+    rec.tag = (dataset, shape)
+    rec.dispatches[rec.tag] += 1
+    rb = torch.from_numpy(block).to(g["row_ptr"].device)
+    stepped = xd.expand_levels(g, rb, sched, rec.expand_ops())
+    rec.tag = None
+    whole = xd.expand_levels(g, rb, sched)
+    plain = xd.expand_levels(g, rb, sched, xd.PLAIN_OPS)
+    if not (torch.equal(stepped, whole) and torch.equal(whole, plain)):
+        raise AssertionError(f"{dataset}: the kernel walk's records differ "
+                             "from the plain walk's")
+    _levels, over = xd.unpack(whole.cpu().numpy(), sched, block.shape[1])
+    return shape, over[:len(roots)]
+
+
+def hold_served(leng, g, vocab, roots, rec: Recorder, dataset, info,
+                cap=None):
+    """The walk one ``batch_expand`` of ``roots`` made on the tables ``g``
+    (``info`` is its ``last_expand``; ``cap`` the ``EXPAND_CAP`` it ran
+    at), held by :func:`hold_expand`, its shape and over bits checked
+    against ``info``.  Returns (launches per shape of each expand kernel,
+    the indices of the over roots: the oracle's)."""
+    from ketotpu_torch.engine import device as tdev
+
+    cap = tdev.EXPAND_CAP if cap is None else cap
+    shape, over = hold_expand(g, vocab, roots, rec, dataset, cap=cap,
+                              fanout=tdev.EXPAND_FANOUT)
+    idx = np.flatnonzero(over)
+    if shape[1:] != (info["roots"], info["schedule"]) or len(idx) != info["over"]:
+        raise AssertionError(f"{dataset}: the engine's walk {info} is not "
+                             f"{shape_name(shape)} with {len(idx)} over")
+    by_shape = {"expand_roots": {shape: 1},
+                "expand_level": {shape: len(shape[2]) - 1}}
+    return by_shape, idx
+
+
+def wide_walk(leng, roots, oracle):
+    """The walk of ``roots`` at ``EXPAND_WIDE_SCALE``x the engine's fan-out
+    and cap on the engine's served view, assembled as the engine
+    assembles (``expand_device.run_expand``), synchronized.  Returns
+    (trees, over bits, ms)."""
+    from ketotpu_torch.engine import device as tdev
+    from ketotpu_torch.engine import expand_device as xd
+
+    snap, tables, ov = leng.expand_view()
+    t0 = time.perf_counter()
+    trees, over = xd.run_expand(
+        tables, snap, roots, EXPAND_DEPTH, max_depth=leng.max_depth,
+        fanout=tdev.EXPAND_FANOUT * EXPAND_WIDE_SCALE,
+        cap=tdev.EXPAND_CAP * EXPAND_WIDE_SCALE, ov=ov,
+        sub_expand=oracle._build)
+    torch.cuda.synchronize()
+    return trees, over, (time.perf_counter() - t0) * 1e3
+
+
+def hold_trees(trees, roots, oracle, what):
+    bad = [str(r) for r, t in zip(roots, trees)
+           if tree_json(t) != tree_json(oracle.build_tree(r, EXPAND_DEPTH))]
+    if bad:
+        raise AssertionError(f"{what}: trees differ from the oracle's: {bad[:4]}")
+
+
+def expand_written(leng, graph, roots, rec: Recorder, name):
+    """Phase 12's Expand after a write batch: the touched roots' trees on
+    the live store's oracle, and the walk's kernels held against their
+    plain versions on the overlay's tables."""
+    from ketotpu_torch.engine import device as tdev
+    from ketotpu_torch.engine.oracle import ExpandEngine
+
+    oracle = ExpandEngine(graph.store, max_depth=leng.max_depth)
+    f0 = leng.fallbacks
+    t0 = time.perf_counter()
+    trees = leng.batch_expand(roots, EXPAND_DEPTH)
+    dt = time.perf_counter() - t0
+    info = dict(leng.last_expand)
+    if leng.fallbacks - f0 != info["over"]:
+        raise AssertionError(f"write batch {name}: fallbacks vs {info}")
+    hold_trees(trees, roots, oracle, f"expand after write batch {name}")
+    snap, tables, ov = leng.expand_view()
+    _b, idx = hold_served(leng, tables, snap.vocab, roots, rec,
+                          f"expand-writes-{name}", info)
+    # the over roots from the card too, at 4x: the overlay merged into
+    # nested trees
+    sub = [roots[i] for i in idx]
+    wshape = None
+    if sub:
+        wtrees, wover, _ms = wide_walk(leng, sub, oracle)
+        if wover.any():
+            raise AssertionError(f"write batch {name}: the 4x walk overflowed")
+        hold_trees(wtrees, sub, oracle, f"expand after write batch {name}, 4x")
+        wshape, _o = hold_expand(
+            tables, snap.vocab, sub, rec, f"expand-writes-{name}",
+            cap=tdev.EXPAND_CAP * EXPAND_WIDE_SCALE,
+            fanout=tdev.EXPAND_FANOUT * EXPAND_WIDE_SCALE)
+    added = 0 if ov is None else sum(len(v) for v in ov.added.values())
+    deleted = 0 if ov is None else sum(len(v) for v in ov.deleted.values())
+    log(f"[12] expand after write batch {name}: {len(roots)} touched roots "
+        f"({sum(t is not None for t in trees)} trees, "
+        f"{sum(len(json.dumps(tree_json(t))) for t in trees)} JSON bytes) in "
+        f"{dt * 1e3:.3f} ms, equal to the oracle's on the live store; overlay "
+        f"members merged on the host: {added} added, {deleted} deleted; "
+        f"{info['over']} roots over at {info['schedule']}, answered by the "
+        f"oracle; from the card at {EXPAND_WIDE_SCALE}x "
+        f"({shape_name(wshape) if wshape else 'none over'}) their trees equal "
+        f"the oracle's too; both walks on the served tables, kernel == plain")
+
+
+def expand_phase(graph, leng, rec: Recorder):
+    """Phase 13: the Expand path on path A's engine (fused, Leopard on, the
+    10M graph): the expand-only upload, a warm 512-root batch, timed
+    repeats (trees/s, host ms per phase, launches per batch, the
+    schedule), single-root latency, the gates (kernels == plain at every
+    shape used, 64 sampled trees and 128 Group / Folder trees == the
+    oracle's, the over ones also from the card at 4x, an overflowing cap
+    sending exactly the over roots to the oracle) and the kernels' timing
+    on both walks.  Returns the kernel line's entries."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.api.types import SubjectSet
+    from ketotpu_torch.engine import device as tdev
+    from ketotpu_torch.engine import expand_device as xd
+    from ketotpu_torch.engine.oracle import ExpandEngine
+
+    rng = np.random.default_rng(SEED_EXPAND)
+    roots = [SubjectSet("Doc", graph.docs[int(rng.integers(len(graph.docs)))],
+                        "parents") for _ in range(EXPAND_ROOTS)]
+    oracle = ExpandEngine(graph.store, max_depth=leng.max_depth)
+    t0 = time.perf_counter()
+    warm = leng.batch_expand(roots, EXPAND_DEPTH)
+    torch.cuda.synchronize()
+    log(f"[13] warm batch_expand of {EXPAND_ROOTS} Doc#parents roots at depth "
+        f"{EXPAND_DEPTH}: {time.perf_counter() - t0:.3f} s, the expand-only "
+        f"upload included ({leng.expand_upload_bytes} bytes in "
+        f"{leng.expand_upload_s * 1e3:.3f} ms, synchronized)")
+    sched = leng.last_expand["schedule"]
+    runs = []
+    for i in range(EXPAND_REPEATS):
+        f0 = leng.fallbacks
+        leng.phase_seconds.clear()
+        kernels.reset_launches()
+        with GCPauses() as gcp:
+            t0 = time.perf_counter()
+            trees = leng.batch_expand(roots, EXPAND_DEPTH)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        phases = {k: round(v * 1e3, 3) for k, v in leng.phase_seconds.items()
+                  if k.startswith("expand_")}
+        runs.append((dt, launches, phases, leng.fallbacks - f0))
+        if [tree_json(t) for t in trees] != [tree_json(t) for t in warm]:
+            raise AssertionError("a timed batch_expand differs from the warm one")
+        log(f"[13] timed batch_expand {i}: {EXPAND_ROOTS} trees in {dt:.4f} s "
+            f"= {EXPAND_ROOTS / dt:.1f} trees/s; oracle fallbacks "
+            f"{runs[-1][3]}; host ms per phase {phases}; garbage-collection "
+            f"pauses (generation, ms) {gcp.pauses}; launches "
+            f"{ {k: c for k, c in launches.items() if c} }")
+    launches = runs[0][1]
+    require_launched(launches, ("expand_roots", "expand_level", "arena_assign"),
+                     "the Expand path")
+    if launches["expand_roots"] != 1 or launches["expand_level"] != len(sched) - 1:
+        raise AssertionError(f"Expand launches {launches} for schedule {sched}")
+    log(f"[13] schedule {sched} (padded roots {leng.last_expand['roots']}); "
+        f"launches per batch { {k: c for k, c in launches.items() if c} }; "
+        f"{sum(t is not None for t in trees)} "
+        f"trees, {sum(len(t.children) for t in trees if t)} children")
+    # single-root latency (bench.py:567-580)
+    leng.batch_expand(roots[:1], EXPAND_DEPTH)
+    calls = []
+    for _ in range(EXPAND_LATENCY_N):
+        leng.phase_seconds.clear()
+        with GCPauses() as gcp:
+            t0 = time.perf_counter()
+            leng.batch_expand(roots[:1], EXPAND_DEPTH)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        calls.append((ms, {k: round(v * 1e3, 3)
+                           for k, v in leng.phase_seconds.items()}, gcp.pauses))
+    lats = sorted(c[0] for c in calls)
+    p50 = lats[len(lats) // 2]
+    p99 = lats[min(len(lats) - 1, int(len(lats) * 0.99))]
+    slow = max(calls, key=lambda c: c[0])
+    t0 = time.perf_counter()
+    xd.Decoder(leng.snapshot().vocab)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[13] single-root batch_expand over {EXPAND_LATENCY_N} calls: p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms (schedule "
+        f"{leng.last_expand['schedule']}); every call in ms "
+        f"{[round(c[0], 3) for c in calls]}; garbage-collection ms per call "
+        f"{[round(sum(p[1] for p in c[2]), 3) for c in calls]}; the slowest's "
+        f"host phases {slow[1]} and collections (generation, ms) {slow[2]}; "
+        f"one reverse-vocab build (expand_device.Decoder, inside assemble) "
+        f"{dec_ms:.3f} ms")
+
+    # -- gates ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    snap, g, _ov = leng.expand_view()
+    shape, over = hold_expand(g, snap.vocab, roots, rec, "expand")
+    if over.any():
+        raise AssertionError("the served walk overflowed")
+    one, _ = hold_expand(g, snap.vocab, roots[:1], rec, "expand")
+    pick = np.random.default_rng(SEED_EXPAND_SAMPLE).choice(
+        EXPAND_ROOTS, EXPAND_SAMPLE, replace=False)
+    hold_trees([trees[i] for i in pick], [roots[i] for i in pick], oracle,
+               "sampled Doc#parents roots")
+    rng = np.random.default_rng(SEED_EXPAND_SAMPLE)
+    wide = [SubjectSet("Group", graph.groups[int(i)], "members") for i in
+            rng.choice(len(graph.groups), EXPAND_WIDE, replace=False)]
+    wide += [SubjectSet("Folder", graph.folders[int(i)], "viewers") for i in
+             rng.choice(len(graph.folders), EXPAND_WIDE, replace=False)]
+    f0 = leng.fallbacks
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    wtrees = leng.batch_expand(wide, EXPAND_DEPTH)
+    torch.cuda.synchronize()
+    wdt = time.perf_counter() - t1
+    wlaunch = dict(kernels.LAUNCHES)
+    winfo = dict(leng.last_expand)
+    if leng.fallbacks - f0 != winfo["over"]:
+        raise AssertionError(f"the wide roots: fallbacks vs {winfo}")
+    hold_trees(wtrees, wide, oracle, "Group#members and Folder#viewers roots")
+    wby, wover = hold_served(leng, g, snap.vocab, wide, rec, "expand-wide",
+                             winfo)
+    if any(sum(wby[n].values()) != wlaunch[n] for n in EXPAND_KERNELS):
+        raise AssertionError(f"the wide roots: launches {wlaunch} vs {wby}")
+    # the over roots from the card at 4x, as a retry would serve them: the
+    # trees against the oracle's, the walk held, and the time against the
+    # oracle's on the same roots, alternated
+    sub = [wide[i] for i in wover]
+    sshape = None
+    if sub:
+        strees, sover, _ms = wide_walk(leng, sub, oracle)
+        if sover.any():
+            raise AssertionError("the 4x walk of the over wide roots overflowed")
+        hold_trees(strees, sub, oracle, "the over wide roots at 4x")
+        sshape, _o = hold_expand(
+            g, snap.vocab, sub, rec, "expand-wide-4x",
+            cap=tdev.EXPAND_CAP * EXPAND_WIDE_SCALE,
+            fanout=tdev.EXPAND_FANOUT * EXPAND_WIDE_SCALE)
+        cmp_ = {"card": [], "oracle": []}
+        for side in ("card", "oracle", "oracle", "card", "card", "oracle"):
+            with GCPauses() as gcp:
+                if side == "card":
+                    ms = wide_walk(leng, sub, oracle)[2]
+                else:
+                    t1 = time.perf_counter()
+                    [oracle.build_tree(r, EXPAND_DEPTH) for r in sub]
+                    ms = (time.perf_counter() - t1) * 1e3
+            cmp_[side].append((round(ms, 3),
+                               round(sum(p[1] for p in gcp.pauses), 3)))
+        for side, v in cmp_.items():
+            log(f"[13] the {len(sub)} over wide roots "
+                f"{'walked on the card at 4x and assembled' if side == 'card' else 'built by the oracle'}: "
+                f"median {float(np.median([x[0] for x in v])):.3f} ms; (ms, "
+                f"garbage-collection ms) per call {v}")
+    log(f"[13] {EXPAND_SAMPLE} sampled Doc#parents trees and {len(wide)} "
+        f"Group#members / Folder#viewers trees "
+        f"({sum(t is not None for t in wtrees)} non-empty, "
+        f"{sum(len(json.dumps(tree_json(t))) for t in wtrees)} JSON bytes, "
+        f"{wdt * 1e3:.3f} ms) equal the oracle's; at the engine's schedule "
+        f"{winfo['schedule']}, {winfo['over']} of the {len(wide)} wide roots "
+        f"overflowed and went to the oracle; their walk at "
+        f"{EXPAND_WIDE_SCALE}x ({shape_name(sshape) if sshape else 'none'}) "
+        f"gives the oracle's trees; launches {wlaunch['expand_roots']} + "
+        f"{wlaunch['expand_level']}; every expand kernel == plain at "
+        f"{shape_name(shape)}, {shape_name(one)}, "
+        f"{[shape_name(s) for s in wby['expand_roots']]}, whole walks equal")
+    # an overflowing cap: exactly the over roots go to the oracle
+    asked = []
+
+    class Asked(ExpandEngine):
+        def build_tree(self, subject, rest_depth=0):
+            asked.append(subject)
+            return super().build_tree(subject, rest_depth)
+
+    f0, cap0 = leng.fallbacks, tdev.EXPAND_CAP
+    tdev.ExpandEngine, tdev.EXPAND_CAP = Asked, EXPAND_OVER_CAP
+    try:
+        capped = leng.batch_expand(roots, EXPAND_DEPTH)
+        cinfo = dict(leng.last_expand)
+    finally:
+        tdev.ExpandEngine, tdev.EXPAND_CAP = ExpandEngine, cap0
+    _cby, cover = hold_served(leng, g, snap.vocab, roots, rec, "expand-capped",
+                              cinfo, cap=EXPAND_OVER_CAP)
+    want = [roots[i] for i in cover]
+    if not want or asked != want or leng.fallbacks - f0 != len(want):
+        raise AssertionError(f"cap {EXPAND_OVER_CAP}: {len(asked)} roots sent to "
+                             f"the oracle, {len(want)} over")
+    if [tree_json(t) for t in capped] != [tree_json(t) for t in trees]:
+        raise AssertionError(f"cap {EXPAND_OVER_CAP}: trees differ")
+    log(f"[13] cap {EXPAND_OVER_CAP} (schedule {cinfo['schedule']}): "
+        f"{len(want)} of {EXPAND_ROOTS} roots over, exactly those answered by "
+        f"the oracle, every tree equal to the uncapped run's; gates in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- kernel timing -----------------------------------------------------------
+    trows = time_kernels(g, rec, "expand", tuple(EXPAND_KERNELS))
+    wrows = time_kernels(g, rec, "expand-wide", tuple(EXPAND_KERNELS))
+    entries = []
+    for name, (source, replaces) in EXPAND_KERNELS.items():
+        per = trows[name]
+        for ds, rows_ in (("expand", per), ("expand-wide", wrows[name])):
+            for s2, r in rows_.items():
+                log(f"[13] {name} at {shape_name(s2)} ({ds}): {r['ms']:.4f} "
+                    f"ms/launch on the card (host enqueue incl. "
+                    f"{r['host_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                    f"library none, bound {r['bound_ms']:.6f} ms (bytes), mean "
+                    f"of {r['calls']} calls")
+        lb, wper = {shape: launches[name]}, wrows[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": rec.err[name],
+            "ms": weighted(per, lb, "ms"), "plain_ms": weighted(per, lb, "plain_ms"),
+            "bound_ms": weighted(per, lb, "bound_ms"), "bound_by": "bytes",
+            "library_ms": None, "path": "expand",
+            "launches_by_shape": {shape_name(shape): launches[name]},
+            "ms_by_shape": {shape_name(s2): r["ms"]
+                            for s2, r in {**per, **wrows[name]}.items()},
+            "bound_ms_by_shape": {shape_name(s2): r["bound_ms"]
+                                  for s2, r in {**per, **wrows[name]}.items()},
+            "wide_path": {
+                "launches": sum(wby[name].values()),
+                "launches_by_shape": {shape_name(s2): c
+                                      for s2, c in wby[name].items()},
+                "ms": weighted(wper, wby[name], "ms"),
+                "plain_ms": weighted(wper, wby[name], "plain_ms"),
+                "bound_ms": weighted(wper, wby[name], "bound_ms")},
+        })
+    dt, _l, phases, _f = runs[0]
+    busy = sum(per_[shape]["ms"] * launches[n] for n, per_ in trows.items())
+    log(f"[13] where the timed Expand batch went: {dt * 1e3:.3f} ms wall; its "
+        f"K9 kernels {busy:.4f} ms on the card (derived: measured ms per launch "
+        f"x launches), host phases {phases} ms")
+    return SimpleNamespace(entries=entries, runs=runs, p50=p50, p99=p99)
 
 
 def main() -> int:
@@ -2300,7 +2800,16 @@ def main() -> int:
         if entry["name"] in wr.timed:
             entry["overlay_path"] = wr.timed[entry["name"]]
     log(f"[12] write phase in {time.perf_counter() - t0:.1f} s")
-    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
+
+    # -- 13. Expand ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    xp = expand_phase(graph, leng, rec)
+    line.extend(xp.entries)
+    for name in EXPAND_KERNELS:
+        log(f"[13] {name}: {len(rec.calls[name])} calls held, kernel == plain "
+            f"(max abs err {rec.err[name]})")
+    log(f"[13] Expand phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

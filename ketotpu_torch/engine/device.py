@@ -36,6 +36,12 @@ the whole cascade and its retry lanes enqueued as one wave per chunk with
 one device-to-host copy.  The hot-spot result cache of the JAX engine is
 not ported.
 
+Expand (:meth:`DeviceCheckEngine.batch_expand`) walks every root's
+membership on the card (K9, ``engine/expand_device.py``) over the check
+tables plus the expand-only tables, uploaded at the first Expand, and
+replays the reference's DFS on the host, with the overlay's member deltas
+merged there; roots whose walk overflowed go to the oracle's Expand.
+
 A CUDA error propagates: there is no fallback from the card to the host.
 """
 
@@ -51,9 +57,16 @@ import numpy as np
 import torch
 
 from ketotpu_torch import kernels
-from ketotpu_torch.api.types import RelationTuple
+from ketotpu_torch.api.types import (
+    RelationTuple,
+    SubjectID,
+    SubjectSet,
+    Tree,
+    TreeNodeType,
+)
 from ketotpu_torch.engine import algebra as alg
 from ketotpu_torch.engine import delta as dl
+from ketotpu_torch.engine import expand_device as xd
 from ketotpu_torch.engine import fastpath as fp
 from ketotpu_torch.engine import fused as fdx
 from ketotpu_torch.engine.optable import R_ERR, R_IS
@@ -61,8 +74,9 @@ from ketotpu_torch.engine.oracle import (
     DEFAULT_MAX_DEPTH,
     DEFAULT_MAX_WIDTH,
     CheckEngine,
+    ExpandEngine,
 )
-from ketotpu_torch.engine.snapshot import Snapshot
+from ketotpu_torch.engine.snapshot import EXPAND_ONLY_KEYS, Snapshot
 from ketotpu_torch.engine.vocab import Vocab
 from ketotpu_torch.leopard import closure as leo
 from ketotpu_torch.leopard import device as leodev
@@ -76,6 +90,11 @@ from ketotpu_torch.storage.namespaces import NamespaceManager
 MAX_OVERLAY_PAIRS = 4096
 MAX_OVERLAY_DIRTY = 512
 FOLD_MAX_PAIRS = 200_000
+#: the Expand walk's schedule (``expand_device.expand_schedule``), at the
+#: JAX engine's: arena slots per level grow by ``EXPAND_FANOUT`` per item
+#: up to ``EXPAND_CAP``
+EXPAND_FANOUT = 16
+EXPAND_CAP = 65536
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -248,6 +267,14 @@ class DeviceCheckEngine:
         # already enqueued keeps the overlay it was planned with
         self._base_device: Optional[Dict[str, torch.Tensor]] = None
         self._device_arrays: Optional[Dict[str, torch.Tensor]] = None
+        # the expand-only tables of the current projection, uploaded at the
+        # first Expand after it (Check serving never pays for them)
+        self._expand_extra: Optional[Dict[str, torch.Tensor]] = None
+        self.expand_upload_s = 0.0  # the last expand-only upload, synchronized
+        self.expand_upload_bytes = 0
+        # the last batch_expand's walk: its schedule, padded root count and
+        # roots answered by the oracle after an arena overflow
+        self.last_expand: Dict[str, object] = {}
         # the store's tuples as id columns, kept current from the change log
         self._cols: Optional[dl.TupleColumns] = None
         self._log_cursor = 0
@@ -455,6 +482,7 @@ class DeviceCheckEngine:
         overlay's tables merged over them, empty ones from the first build
         so the kernels see the same tables before and after a write."""
         self._base_device = upload(self._snap.check_arrays(), self.device)
+        self._expand_extra = None  # the next Expand uploads the new ones
         self._set_overlay_tables(upload(
             dl.overlay_arrays(self._overlay, self._snap,
                               pair_cap=self.max_overlay_pairs),
@@ -582,6 +610,21 @@ class DeviceCheckEngine:
             return "apply"
         self._install_leopard()
         return "rebuild"
+
+    def _expand_arrays(self) -> Dict[str, torch.Tensor]:
+        """The tables the Expand walk reads: the check tables (the overlay's
+        included) plus the expand-only tables, uploaded on the first call
+        after each projection.  Called under the view lock."""
+        if self._expand_extra is None:
+            t0 = time.perf_counter()
+            extra = {k: getattr(self._snap, k) for k in EXPAND_ONLY_KEYS}
+            self._expand_extra = upload(extra, self.device)
+            self._sync_device()
+            self.expand_upload_s = time.perf_counter() - t0
+            self.expand_upload_bytes = sum(int(v.nbytes) for v in extra.values())
+        g = kernels.DeviceTables(self._device_arrays)
+        g.update(self._expand_extra)
+        return g
 
     def refresh(self) -> None:
         """Force a full re-projection."""
@@ -875,6 +918,66 @@ class DeviceCheckEngine:
         out: List[bool] = []
         for c, h in zip(chunks, handles):
             out.extend(self._finish_chunk(c, h, rest_depth).tolist())
+        return out
+
+    def expand_view(self):
+        """(snapshot, Expand tables, overlay members or None) read as one
+        view, with every write the store logged applied first."""
+        with self._view_lock:
+            self._snapshot_locked()
+            ov = (xd.OverlayMembers(self._overlay, self._snap, self._vocab)
+                  if self._overlay_active else None)
+            return self._snap, self._expand_arrays(), ov
+
+    def batch_expand(self, subjects, rest_depth: int = 0) -> List[Optional[Tree]]:
+        """Batched Expand: one K9 walk for all subject-set roots, the exact
+        DFS replay on the host (``expand_device.run_expand``).  SubjectID
+        roots are leaves without the card (expand/handler.go:115-126).
+        With writes pending in the overlay, the card still walks base rows
+        and the assembly merges the overlay's member deltas
+        (``expand_device.OverlayMembers``); added subject-set subtrees
+        recurse through the oracle's Expand with the tree's shared visited
+        set.  The snapshot, the tables and the overlay copy come from one
+        locked view, so a write landing meanwhile never mixes generations.
+        Roots whose walk overflowed an arena (:data:`EXPAND_CAP`) are
+        answered by the oracle's Expand on the live store.
+
+        Unlike the JAX engine, which serves the whole batch on the oracle
+        when the device walk raises (``engine/tpu.py:2079-2091``), a CUDA
+        error propagates here, as on the check path."""
+        oracle = ExpandEngine(self.store, max_depth=self.max_depth)
+        subjects = list(subjects)
+        out: List[Optional[Tree]] = [None] * len(subjects)
+        set_idx = [i for i, s in enumerate(subjects) if isinstance(s, SubjectSet)]
+        for i, s in enumerate(subjects):
+            if isinstance(s, SubjectID):
+                out[i] = Tree(type=TreeNodeType.LEAF,
+                              tuple=RelationTuple("", "", "", s))
+        if not set_idx:
+            return out  # leaves only: neither the card nor the lock
+        t0 = time.perf_counter()
+        snap, tables, ov = self.expand_view()
+        self._phase("expand_snapshot", t0)
+        timings: Dict[str, float] = {}
+        info: dict = {}
+        trees, over = xd.run_expand(
+            tables, snap, [subjects[i] for i in set_idx], rest_depth,
+            max_depth=self.max_depth, fanout=EXPAND_FANOUT, cap=EXPAND_CAP,
+            ov=ov, sub_expand=oracle._build, timings=timings, info=info,
+        )
+        for name, dt in timings.items():
+            self.phase_seconds["expand_" + name] = (
+                self.phase_seconds.get("expand_" + name, 0.0) + dt)
+        t0 = time.perf_counter()
+        for k, i in enumerate(set_idx):
+            if over[k]:
+                self.fallbacks += 1
+                out[i] = oracle.build_tree(subjects[i], rest_depth)
+            else:
+                out[i] = trees[k]
+        if over.any():
+            self._phase("expand_oracle_fallback", t0)
+        self.last_expand = dict(info, over=int(over.sum()))
         return out
 
     def _qpack(self, enc, active, qpad: int) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``csrc/{probe,arena,children,pack,algebra,leopard,wave}.cu``
+The sources are ``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand}.cu``
 (plus the shared headers ``common.cuh``, ``scan.cuh`` and ``leopard.cuh``).
 Each ``.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface, under
@@ -11,7 +11,8 @@ with ``ctypes``; pointers and the stream travel as ``c_void_p``.
 
 The wrappers that launch the kernels live beside their plain PyTorch
 versions (``engine/fastpath.py``, ``engine/xutil.py``,
-``engine/algebra.py``, ``leopard/device.py``, ``engine/fused.py``).  Each
+``engine/algebra.py``, ``leopard/device.py``, ``engine/fused.py``,
+``engine/expand_device.py``).  Each
 wrapper adds one to its entry of :data:`LAUNCHES` where it launches, and
 nowhere else.
 Nothing here runs at import: the CPU tests import every module.
@@ -31,7 +32,8 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave")
+MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave",
+           "expand")
 HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +59,8 @@ LAUNCHES: Dict[str, int] = {
     "wave_lane": 0,
     "wave_gen_lane": 0,
     "wave_pack": 0,
+    "expand_roots": 0,
+    "expand_level": 0,
 }
 
 #: the largest visited set: its claim array fills the one block's shared
@@ -180,6 +184,14 @@ class GenState(ctypes.Structure):
     ]
 
 
+class XTab(ctypes.Structure):
+    _fields_ = [
+        ("mem_row_ptr", _P), ("mem_ord_subj", _P), ("sub_ns", _P),
+        ("sub_obj", _P), ("sub_rel", _P),
+        ("n_mem_ptr", _I), ("n_mem", _I), ("n_sub", _I),
+    ]
+
+
 _SIGNATURES = {
     "probe": {
         "probe_level": [Graph, Items, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
@@ -216,6 +228,11 @@ _SIGNATURES = {
                       _P],
         "wave_gen_lane": [_P, _P, _I, _P, _P, _P, _P],
         "wave_pack": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+    },
+    "expand": {
+        "expand_roots": [Graph, XTab, _P, _I, _I, _P, _P, _P, _P],
+        "expand_level": [Graph, XTab, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P,
+                         _I, _P, _P, _P, _P],
     },
 }
 
@@ -303,6 +320,7 @@ class DeviceTables(dict):
 
     _graph: Optional[Graph] = None
     _prog: Optional[Prog] = None
+    _xtab: Optional["XTab"] = None
 
 
 def graph(g: Dict[str, torch.Tensor]) -> Graph:
@@ -356,6 +374,32 @@ def _graph(g: Dict[str, torch.Tensor]) -> Graph:
         n_row_ptr=g["row_ptr"].shape[0], n_edges=g["edge_hi"].shape[0],
         **overlay,
     )
+
+
+def xtab(g: Dict[str, torch.Tensor]) -> XTab:
+    """The Expand kernels' view of the expand-only tables
+    (``snapshot.EXPAND_ONLY_KEYS``; validated; cached on a
+    :class:`DeviceTables`)."""
+    cached = getattr(g, "_xtab", None)
+    if cached is not None:
+        return cached
+    device = g["row_ptr"].device
+    n_sub = g["sub_ns"].shape[0]
+
+    def t(name, shape=None):
+        return ptr(require(g[name], torch.int32, name, shape=shape,
+                           device=device))
+
+    out = XTab(
+        mem_row_ptr=t("mem_row_ptr"), mem_ord_subj=t("mem_ord_subj"),
+        sub_ns=t("sub_ns"), sub_obj=t("sub_obj", (n_sub,)),
+        sub_rel=t("sub_rel", (n_sub,)),
+        n_mem_ptr=g["mem_row_ptr"].shape[0],
+        n_mem=g["mem_ord_subj"].shape[0], n_sub=n_sub,
+    )
+    if isinstance(g, DeviceTables):
+        g._xtab = out
+    return out
 
 
 def items(cols, device=None) -> Items:

@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 from ketotpu_torch import kernels
+from ketotpu_torch.engine import device as tdevice
 from ketotpu_torch.engine import fastpath as fp
 from ketotpu_torch.engine import xutil
 from ketotpu_torch.engine.device import DeviceCheckEngine
@@ -368,3 +369,68 @@ def test_overflowing_overlay_folds_on_the_card():
     assert all(e == 0 for e in rec.err.values())
     for k in ("probe_level", "pack_verdicts", "wave_lane"):
         assert rec.calls[k], k
+
+
+# -- Expand (K9) ------------------------------------------------------------------
+
+
+def _expand_roots(g, eng, n):
+    """Doc#parents, Group#members and Folder#viewers roots of the graph."""
+    from ketotpu_torch.api.types import SubjectSet
+
+    rng = np.random.default_rng(n)
+    docs = [SubjectSet("Doc", g.docs[int(i)], "parents")
+            for i in rng.choice(len(g.docs), n, replace=False)]
+    groups = [SubjectSet("Group", g.groups[int(i)], "members")
+              for i in rng.choice(len(g.groups), n, replace=False)]
+    folders = [SubjectSet("Folder", g.folders[int(i)], "viewers")
+               for i in rng.choice(len(g.folders), n, replace=False)]
+    return docs + groups + folders
+
+
+@pytest.mark.parametrize("n,cap", [(1, 65536), (40, 65536), (170, 65536),
+                                   (170, 64)])
+def test_expand_kernels_match_their_plain_versions(engine, n, cap, monkeypatch):
+    """expand_roots and expand_level (and K4 between them) call by call,
+    then the whole walk, against the plain versions on the base tables;
+    the trees against the oracle's."""
+    from ketotpu_torch.engine.oracle import ExpandEngine
+
+    g, eng = engine
+    roots = _expand_roots(g, eng, n)
+    snap, tables, _ov = eng.expand_view()
+    rec = chip_smoke.Recorder()
+    _shape, over = chip_smoke.hold_expand(tables, snap.vocab, roots, rec, "x",
+                                          cap=cap)
+    assert all(e == 0 for e in rec.err.values())
+    assert rec.calls["expand_roots"] and rec.calls["expand_level"]
+    assert over.any() == (cap < 65536)
+    oracle = ExpandEngine(g.store, max_depth=eng.max_depth)
+    monkeypatch.setattr(tdevice, "EXPAND_CAP", cap)
+    trees = eng.batch_expand(roots, 5)
+    assert eng.last_expand["over"] == int(over.sum())
+    assert [chip_smoke.tree_json(t) for t in trees] == [
+        chip_smoke.tree_json(oracle.build_tree(r, 5)) for r in roots]
+
+
+def test_expand_kernels_match_their_plain_versions_on_the_overlay(written):
+    """The walk on tables with a non-empty overlay: a virtual node reads 0
+    members, a dirty row keeps its base degree; the trees (the overlay's
+    members merged on the host) against the oracle's."""
+    from ketotpu_torch.api.types import SubjectSet
+    from ketotpu_torch.engine.oracle import ExpandEngine
+
+    g, eng, rows = written
+    roots = list(dict.fromkeys(SubjectSet(t.namespace, t.object, t.relation)
+                               for t in rows))[:256]
+    snap, tables, ov = eng.expand_view()
+    assert ov is not None and ov.new_nodes and (ov.added or ov.deleted)
+    rec = chip_smoke.Recorder()
+    chip_smoke.hold_expand(tables, snap.vocab, roots, rec, "x")
+    assert all(e == 0 for e in rec.err.values())
+    kernels.reset_launches()
+    trees = eng.batch_expand(roots, 5)
+    assert kernels.LAUNCHES["expand_roots"] == 1
+    oracle = ExpandEngine(g.store, max_depth=eng.max_depth)
+    assert [chip_smoke.tree_json(t) for t in trees] == [
+        chip_smoke.tree_json(oracle.build_tree(r, 5)) for r in roots]

@@ -135,3 +135,30 @@ def test_fused_wave_and_leopard_on_cpu_launch_nothing(monkeypatch):
     unfused.batch_check(probes)
     assert unfused.leopard_answered == len(probes) and len(probed) == 1
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_expand_on_cpu_launches_nothing_and_its_kernels_refuse_cpu_tables():
+    """The Expand wrappers take their plain versions for CPU tensors only:
+    a CPU engine's ``batch_expand`` counts no launch, and a tensor on any
+    other device goes to the kernel, whose argument checks refuse CPU
+    tables (no fallback to the plain version)."""
+    from ketotpu_torch.api.types import SubjectSet
+    from ketotpu_torch.engine import expand_device as txd
+    from ketotpu_torch.utils.synth import build_synth
+
+    g = build_synth(n_users=32, n_groups=4, n_folders=16, n_docs=64)
+    eng = tdevice.DeviceCheckEngine(g.store, g.manager, device="cpu")
+    kernels.reset_launches()
+    trees = eng.batch_expand([SubjectSet("Group", "g0", "members")])
+    assert trees[0] is not None and trees[0].children
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    tables = eng.expand_view()[1]
+    roots = torch.empty((5, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        txd.expand_roots(tables, roots, 8)
+    rec = torch.empty((7, 8), dtype=torch.int32, device="meta")
+    cols = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        txd.expand_level(tables, rec, cols, rec[:1], cols, cols, cols,
+                         over=cols)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
