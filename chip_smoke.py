@@ -181,8 +181,22 @@ EXPAND_KERNELS = {
     "expand_level": ("ketotpu_torch/csrc/expand.cu",
                      "ketotpu/engine/expand_device.py:69"),
 }
+#: the graph-sharded mesh (K10): CUDA source and the JAX function each
+#: replaces
+MESH_KERNELS = {
+    "shard_owner": ("ketotpu_torch/csrc/shard.cu",
+                    "ketotpu/parallel/graphshard.py:62"),
+    "shard_route": ("ketotpu_torch/csrc/shard.cu",
+                    "ketotpu/parallel/graphshard.py:159"),
+    "shard_merge": ("ketotpu_torch/csrc/shard.cu",
+                    "ketotpu/parallel/graphshard.py:296"),
+    "shard_merge_classified": ("ketotpu_torch/csrc/shard.cu",
+                               "ketotpu/engine/algebra.py:730"),
+    "shard_merge_child": ("ketotpu_torch/csrc/shard.cu",
+                          "ketotpu/engine/algebra.py:754"),
+}
 ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS,
-               *EXPAND_KERNELS)
+               *EXPAND_KERNELS, *MESH_KERNELS)
 #: the tier-1 kernels a fused wave launches (its results stay on the card:
 #: no pack_verdicts)
 WAVE_FAST_KERNELS = ("init_state", "probe_level", "arena_assign",
@@ -197,8 +211,13 @@ DEEP_MAX_DEPTH, DEEP_REST = 16, 10
 SEED_DEEP, SEED_MODES = 23, 29
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, prefixed with the seconds since the script
+    started (where the script's time goes)."""
+    print(f"{time.perf_counter() - _T0:7.1f} s  {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -225,8 +244,15 @@ def pairs():
 
     from ketotpu_torch.engine import fused as fdx
     from ketotpu_torch.leopard import device as leodev
+    from ketotpu_torch.parallel import graphshard as gs
 
     return {
+        "shard_owner": (gs.shard_owner, gs._shard_owner_plain),
+        "shard_route": (gs.shard_route, gs._shard_route_plain),
+        "shard_merge": (gs.merge_bits, gs._merge_bits_plain),
+        "shard_merge_classified": (gs.merge_classified,
+                                   gs._merge_classified_plain),
+        "shard_merge_child": (gs.merge_child, gs._merge_child_plain),
         "expand_roots": (xd.expand_roots, xd._expand_roots_plain),
         "expand_level": (xd.expand_level, xd._expand_level_plain),
         "leo_probe": (leodev.probe, leodev._probe_plain),
@@ -286,6 +312,9 @@ class Recorder:
         self.calls = {k: [] for k in ALL_KERNELS}
         self.tag = None
         self.dispatches = Counter()  # replayed dispatches per tag
+        # False: count the calls per tag but keep no arguments (nothing to
+        # time; the card's memory stays free)
+        self.keep = True
 
     def run(self, name, *args, **kw):
         kernel, plain = pairs()[name]
@@ -296,7 +325,9 @@ class Recorder:
             kernel(*args, **kw)
             plain(*args[:i], twin, *args[i + 1:], **kw)
             self.compare(name, st.tensors(), twin.tensors())
-            self.calls[name].append((self.tag, args[:i] + (before,) + args[i + 1:], kw))
+            self.calls[name].append(
+                (self.tag, args[:i] + (before,) + args[i + 1:], kw) if self.keep
+                else (self.tag, None, None))
             return None
         kw_plain = {k: (v.clone() if k in OUT_KW and v is not None else v)
                     for k, v in kw.items()}
@@ -305,7 +336,8 @@ class Recorder:
         outs = [k for k in OUT_KW if kw.get(k) is not None]
         self.compare(name, dict(enumerate(flatten(got) + [kw[k] for k in outs])),
                      dict(enumerate(flatten(want) + [kw_plain[k] for k in outs])))
-        self.calls[name].append((self.tag, args, kw))
+        self.calls[name].append((self.tag, args, kw) if self.keep
+                                else (self.tag, None, None))
         return got
 
     def ops(self):
@@ -337,6 +369,18 @@ class Recorder:
         return fdx.WaveOps(step("wave_tier0"), step("wave_lane"),
                            step("wave_gen_lane"), step("wave_pack"), fp._OPS,
                            alg._OPS)
+
+    def mesh_ops(self):
+        """The sharded programs' steps (K10 and the K7 / tier-1 steps they
+        run), each through :meth:`run`."""
+        from ketotpu_torch.parallel import graphshard as gs
+
+        def step(name):
+            return lambda *a, **k: self.run(name, *a, **k)
+
+        return gs.MeshOps(step("shard_owner"), step("shard_route"),
+                          step("shard_merge"), step("shard_merge_classified"),
+                          step("shard_merge_child"), self.ops())
 
     def expand_ops(self):
         """The Expand walk's steps (K9 and its K4), each through :meth:`run`."""
@@ -604,11 +648,11 @@ def not_flips(graph, engine, limit: int):
             for t, ok in zip(views, got) if ok]
 
 
-def fixture_engine():
+def fixture_engine(cls=None, **kw):
     """An engine over the tier-2 parity fixture of ``tests/torch_parity.py``
     (AND / NOT permits, a NOT chain, subject sets into AND/NOT permits that
     enter the visited set, a deep tainted recursion) and its query batches,
-    by name."""
+    by name: a ``DeviceCheckEngine``, or ``cls`` built with ``kw``."""
     import os
 
     from ketotpu_torch.api.types import RelationTuple
@@ -629,7 +673,8 @@ def fixture_engine():
         *[RelationTuple.from_string(s) for s in algebra_tuples()])
     batches = {name: [RelationTuple.from_string(s) for s in batch]
                for name, batch in ALGEBRA_BATCHES.items()}
-    return DeviceCheckEngine(store, StaticNamespaceManager(namespaces)), batches
+    return (cls or DeviceCheckEngine)(store, StaticNamespaceManager(namespaces),
+                                      **kw), batches
 
 
 def visited_counts(st, level: int):
@@ -955,6 +1000,10 @@ def host_ms(fn, reps: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+#: calls timed per kernel and dispatch shape in phase 11 (evenly spaced
+#: over the main and mixed paths' calls; every call is held against its
+#: plain version when it is recorded all the same)
+MAIN_TIMED_SAMPLE = 8
 #: clones of the state per timed replay of a K7 call, and timed replays
 STATE_COPIES, STATE_ROUNDS = 16, 5
 #: device clock cycles the card spins before a timed replay (about 0.5 ms)
@@ -1030,7 +1079,9 @@ def kernel_bytes(name, args, kw, g) -> int:
     deg = 8 + (1 if ov else 0)  # bytes per row degree read
     if name == "init_state":
         q = args[0].shape[1]
-        return 6 * 4 * q + item * kw["frontier"] + 2 * 4 * q + 4
+        b = 6 * 4 * q + item * kw["frontier"] + 2 * 4 * q + 4
+        # a shard of the mesh: the assign row too
+        return b + (4 * q if kw.get("assign") is not None else 0)
     if name == "probe_level":
         _g, f, qf, _qd, _qs = args
         n, nq = f.qid.shape[0], qf.shape[0]
@@ -1056,10 +1107,15 @@ def kernel_bytes(name, args, kw, g) -> int:
         return b
     if name == "pack_scatter":
         ch, qf = args[0], args[1]
-        a, nq = ch.qid.shape[0], qf.shape[0]
-        alive = int((ch.qid >= 0).sum())
+        if isinstance(ch, torch.Tensor):  # the rows a shard received
+            a, row = ch.shape[0], 4 * ch.shape[1]
+            alive = int((ch[:, 0] >= 0).sum())
+        else:
+            a, row = ch.qid.shape[0], item
+            alive = int((ch.qid >= 0).sum())
+        nq = qf.shape[0]
         # the scratch dedup table is left out: it fits in L2 (pack.cu)
-        b = item * a + 4 * alive  # children + their found bits
+        b = row * a + 4 * alive  # children + their found bits
         b += item * kw["frontier"] + 2 * 4 * nq + 4  # frontier, over bits, occ
         return b
     if name == "pack_verdicts":
@@ -1136,8 +1192,36 @@ def kernel_bytes(name, args, kw, g) -> int:
         b = 4 * q + (12 * q if found is not None else 0)
         b += 4 * q if gbits is not None else (q if gcodes is not None else 0)
         return b + 4 * (nf + ng) + 4 * (q + nf + ng)
+    if name == "shard_owner":
+        return 3 * 4 * args[0].shape[0]  # ns, obj in; owner out
+    if name == "shard_route":
+        ch, qo = args
+        a, nq = ch.qid.shape[0], qo.shape[0]
+        alive = int((ch.qid >= 0).sum())
+        # every child's qid; an alive child's other six columns; the over
+        # bits in and out; the send block written (the scan's scratch
+        # fits in L2 and is left out)
+        return (4 * a + (item - 4) * alive + 2 * 4 * nq
+                + 4 * 7 * kw["n_shards"] * kw["cap"])
+    if name == "shard_merge":
+        stage = args[0]
+        return 4 * stage.numel() + 4 * stage[0].numel()
     st = args[state_index(args)]
     t = st.tasks
+    if name == "shard_merge_classified":
+        w = args[3].shape[2]
+        # psum(where(mine, x, 0)) is the owner's partial: its nine columns,
+        # the owner and qid columns in; twelve columns out (p_kind's few
+        # words and the q bits' atomics left out)
+        return 4 * w * (9 + 2 + 12)
+    if name == "shard_merge_child":
+        stage, owner_par = args[2], args[3]
+        lo, w = st.span(args[1])
+        parent = t[alg.TI["parent"], lo:lo + w]
+        n_par = int(torch.unique(parent.clamp(0, owner_par.shape[0] - 1)).numel())
+        # the owner's partial of the twelve columns and the parent column
+        # in, the owner of each distinct parent; twelve columns out
+        return 4 * w * (12 + 1 + 12) + 4 * n_par
     if name == "gen_classify":
         level = args[2]
         _lo, n = st.span(level)
@@ -1165,6 +1249,8 @@ def kernel_bytes(name, args, kw, g) -> int:
         # the fourteen fields its children read (qid, kind, ns, obj, rel, d,
         # vscope; pk, r0, pp, node, node_ttu, deg, prog_root)
         b = n * 4 * (2 + 3 + 14)
+        if kw.get("owner") is not None:
+            b += n * 4  # a shard of the mesh: the parents' owners
         b += a * 4 * 2 + a * 4 * 13  # slot map in, child columns + flag out
         b += live * (8 + 4)  # edge word + object, row pointer
         return b
@@ -1219,6 +1305,8 @@ def expand_level_counts(args, kw):
 LIBRARY = {
     "arena_assign": lambda args, kw: torch.cumsum(args[0], 0, dtype=torch.int32),
     "leo_probe": lambda args, kw: library_probe(*args),
+    # psum(x) > 0 of int32 0/1 partials is their max
+    "shard_merge": lambda args, kw: torch.amax(args[0], 0),
 }
 #: kernels timed as a graph of back-to-back calls (they leave their inputs
 #: as they found them)
@@ -1255,20 +1343,35 @@ def calls_ms(fn):
     return float(np.median(per)), max(per) - min(per), host_ms(fn)
 
 
-def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS):
+def _sampled(calls, dataset, sample):
+    """``dataset``'s kept calls; with ``sample``, at most that many per
+    shape, evenly spaced over the calls at that shape."""
+    by = {}
+    for c in calls:
+        if c[0] is not None and c[0][0] == dataset and c[1] is not None:
+            by.setdefault(c[0][1], []).append(c)
+    out = []
+    for cs in by.values():
+        if sample and len(cs) > sample:
+            cs = [cs[int(i)] for i in np.unique(
+                np.linspace(0, len(cs) - 1, sample).round())]
+        out += cs
+    return out
+
+
+def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS, sample=None):
     """Per kernel of ``names``, per dispatch shape: device ms per launch,
     its plain version's and the library call's, the byte bound and the
     host's ms per eager call, averaged over ``dataset``'s calls at that
-    shape.  A tier-1 call is replayed as it was (:func:`device_ms`); a K7
-    call restarts from the state it found (:func:`state_ms`), and
+    shape (with ``sample``, over that many of them, evenly spaced).  A
+    tier-1 call is replayed as it was (:func:`device_ms`); a K7 call
+    restarts from the state it found (:func:`state_ms`), and
     ``spread_ms`` is the largest spread of its replays."""
     rows = {}
     for name in names:
         kernel, plain = pairs()[name]
         by_shape = {}
-        for tag, args, kw in rec.calls[name]:
-            if tag is None or tag[0] != dataset:
-                continue
+        for tag, args, kw in _sampled(rec.calls[name], dataset, sample):
             r = by_shape.setdefault(tag[1], {
                 "ms": [], "plain_ms": [], "library_ms": [], "host_ms": [],
                 "bound_ms": [], "spread_ms": []})
@@ -2275,6 +2378,355 @@ def expand_phase(graph, leng, rec: Recorder):
     return SimpleNamespace(entries=entries, runs=runs, p50=p50, p99=p99)
 
 
+# -- phase 14: the graph-sharded mesh (K10) -------------------------------------
+
+MESH_SHARDS = (1, 4)  # n = 1 on the first card; n = 4 as ["cuda:0"] * 4
+MESH_TIMED_SAMPLE = 4  # calls timed per kernel and dispatch shape
+SEED_MESH_WRITES = 59
+#: the kernels with a mask input for the mesh (timed on its calls too)
+MESH_MASKED = ("init_state", "gen_classify", "gen_construct", "gen_collect",
+               "pack_scatter")
+
+
+def mesh_replay(meng, chunk, rec: Recorder, dataset: str):
+    """One chunk as the mesh engine answers it, step by step through
+    ``rec`` (every kernel against its plain version): its tier-1 rows'
+    sharded run at the first pass's caps and the retry of its over rows,
+    its general rows' sharded program at the first pass's shapes and the
+    retry's; each whole run's verdicts (and occupancy rows) against the
+    plain run's.  Returns (allowed, fallback, stats) as the engine's
+    collect computes them."""
+    from ketotpu_torch.engine.device import _bucket
+    from ketotpu_torch.parallel import graphshard as gs
+
+    n = len(chunk)
+    snap = meng.snapshot()
+    enc = meng._encode(snap, chunk, 0)
+    err, general = meng._classify(snap, enc[0], enc[2])
+    act = ~(err | general)
+    assign, _owner = meng._route_assign(enc[0], enc[1])
+    allowed, fallback = np.zeros(n, bool), err.copy()
+    stats = {"route_over_rows": 0, "fast_retried": 0, "fast_fallbacks": 0,
+             "general": int(general.sum()), "general_retried": 0,
+             "general_fallbacks": 0}
+    ops = rec.mesh_ops()
+    route = ops.route
+
+    def counted(ch, qo, **kw):
+        send, qo2 = route(ch, qo, **kw)
+        stats["route_over_rows"] += int(((qo2 != 0) & (qo == 0)).sum())
+        return send, qo2
+
+    ops = ops._replace(route=counted)
+
+    def fast(rows, act_, assign_, qpad, boost):
+        frontier, arena = boost * meng.frontier, boost * meng.arena
+        rec.tag = (dataset, (qpad, frontier, arena, boost))
+        rec.dispatches[rec.tag] += 1
+        m = len(act_)
+        kw = dict(frontier=frontier, arena=arena, max_depth=meng.max_depth,
+                  max_width=meng.max_width, active=np.pad(act_, (0, qpad - m)),
+                  assign=np.pad(assign_, (0, qpad - m)))
+        padded = meng._pad(rows, m, qpad)
+        got = gs._sharded_fast(ops, meng._stacked, padded, meng.mesh, **kw)
+        want = gs._sharded_fast(gs._PLAIN_OPS, meng._stacked, padded, meng.mesh,
+                                **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{dataset}: sharded run != plain run")
+        return gs.ShardedResult.of(got)
+
+    if act.any():
+        res = fast(enc, act, assign, min(_bucket(n), meng.frontier), 1)
+        found, over, dirty = res.found[:n], res.over[:n], res.dirty[:n]
+        allowed[act] = found[act]
+        fallback |= act & dirty & ~found
+        unres = act & over & ~found & ~dirty
+        ri = np.flatnonzero(unres)
+        stats["fast_retried"] = len(ri)
+        if len(ri):
+            rres = fast(tuple(a[ri] for a in enc), np.ones(len(ri), bool),
+                        assign[ri], min(_bucket(len(ri), 256), meng.frontier),
+                        meng.retry_scale)
+            rf = rres.found[: len(ri)]
+            allowed[ri] = rf
+            unres[ri] = (rres.over[: len(ri)] | rres.dirty[: len(ri)]) & ~rf
+        fallback |= unres
+        stats["fast_fallbacks"] = int(unres.sum() + (act & dirty & ~found).sum())
+
+    def gen(rows, boost):
+        qpack, sched = meng.pack_general(enc, rows, boost)
+        rec.tag = (dataset, gen_key(qpack, boost, sched))
+        rec.dispatches[rec.tag] += 1
+        kw = dict(sizes=sched[0], fast_b=sched[1], fast_sched=sched[2],
+                  max_width=meng.max_width, vcap=sched[3])
+        got = gs.fetch_general(gs._sharded_general(ops, meng._stacked, qpack,
+                                                   meng.mesh, **kw))
+        want = gs.fetch_general(gs._sharded_general(
+            gs._PLAIN_OPS, meng._stacked, qpack, meng.mesh, **kw))
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"{dataset}: sharded general != plain program")
+        return got[0][: len(rows)]
+
+    if general.any():
+        gi = np.flatnonzero(general)
+        packed = gen(gi, 1)
+        codes = (packed & 3).astype(np.int8)
+        gover = ((packed >> 2) & 1).astype(bool)
+        gdirty = ((packed >> 3) & 1).astype(bool)
+        allowed[gi] = codes == 1
+        gunres = gover & ~gdirty & (codes != 3)
+        if gunres.any():
+            ri = gi[np.flatnonzero(gunres)]
+            stats["general_retried"] = len(ri)
+            rp = gen(ri, meng.retry_scale)
+            rcodes = (rp & 3).astype(np.int8)
+            allowed[ri] = rcodes == 1
+            gover[gunres] = (((rp >> 2) | (rp >> 3)) & 1).astype(bool) | (rcodes == 3)
+            codes = codes.copy()
+            codes[np.flatnonzero(gunres)] = rcodes
+        gfb = gover | gdirty | (codes == 3)
+        fallback[gi] |= gfb
+        stats["general_fallbacks"] = int(gfb.sum())
+    return allowed, fallback, stats
+
+
+def mesh_serve(meng, traffic, name, rec: Recorder, dataset: str, keep: bool):
+    """One traffic on a mesh engine: warmed twice (the general schedule
+    freezes), replayed chunk by chunk (:func:`mesh_replay`; the served
+    collect equal to the replay), then served with the launch counts
+    reset just before and read just after.  Returns the timed run's
+    numbers."""
+    from ketotpu_torch import kernels
+
+    mb = meng.max_batch
+    w1 = meng.batch_check(traffic)
+    w2 = meng.batch_check(traffic)
+    if w1 != w2:
+        raise AssertionError(f"{name}: the mesh's verdicts changed between warm runs")
+    rec.keep = keep
+    stats = Counter()
+    for lo in range(0, len(traffic), mb):
+        chunk = traffic[lo: lo + mb]
+        a, fb, st = mesh_replay(meng, chunk, rec, dataset)
+        sa, sfb = meng._collect(meng._dispatch(chunk, 0))
+        if not (np.array_equal(a[~fb], sa[~sfb]) and np.array_equal(fb, sfb)):
+            raise AssertionError(f"{name}: the served chunk != its replay")
+        stats.update(st)
+    rec.keep = True
+    r0, gr0, f0 = meng.retries, meng.general_retries, meng.fallbacks
+    meng.phase_seconds.clear()
+    meng.dispatch_shapes.clear()
+    meng.general_shapes.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = meng.batch_check(traffic)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    shapes = dict(meng.dispatch_shapes)
+    shapes.update({("gen", q, b, sch): c
+                   for (q, b, sch), c in meng.general_shapes.items()})
+    phases = {k: round(v * 1e3, 3) for k, v in meng.phase_seconds.items()}
+    retries, gretries = meng.retries - r0, meng.general_retries - gr0
+    fallbacks = meng.fallbacks - f0
+    more = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        meng.batch_check(traffic)
+        torch.cuda.synchronize()
+        more.append(time.perf_counter() - t1)
+    if out != w2:
+        raise AssertionError(f"{name}: the timed batch differs from the warm batch")
+    unheld = set(shapes) - rec.shapes(dataset)
+    if unheld:
+        raise AssertionError(f"{name}: dispatched at shapes never held: {unheld}")
+    by_shape = expected_launches(rec.calls, rec.dispatches, dataset, shapes)
+    for k in (*KERNELS, *GEN_KERNELS, *MESH_KERNELS):
+        if sum(by_shape[k].values()) != launches[k]:
+            raise AssertionError(f"{name}: {k} {launches[k]} launches, the "
+                                 f"replay's {by_shape[k]} by dispatch shape")
+    return SimpleNamespace(out=out, dt=dt, more=more, launches=launches,
+                           shapes=shapes, by_shape=by_shape, phases=phases,
+                           retries=retries, general_retries=gretries,
+                           fallbacks=fallbacks, replay=dict(stats))
+
+
+def mesh_phase(graph, engine, queries, mixed_q):
+    """Phase 14: the graph-sharded mesh engine on the 10M graph at n = 1
+    (the default device selection) and n = 4 (``["cuda:0"] * 4``): both
+    traffics served, every kernel held step by step, verdicts against the
+    single-device engine's (row for row) and sampled rows against the
+    oracle's; at n = 4 two write batches (per-shard overlays; a dirty
+    nested group to the oracle) and 512 Doc#parents trees through the
+    replica against the single-device engine's; the new kernels timed.
+    Returns the kernel line's entries for the mesh kernels and the mesh
+    numbers of the masked ones."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.api.types import RelationTuple, SubjectSet
+    from ketotpu_torch.parallel import MeshCheckEngine
+    from ketotpu_torch.parallel import graphshard as gs
+
+    rec = Recorder()
+    t0 = time.perf_counter()
+    ref = {"pure-OR": engine.batch_check(queries), "mixed": engine.batch_check(mixed_q)}
+    single = {}
+    for name, traffic in (("pure-OR", queries), ("mixed", mixed_q)):
+        t1 = time.perf_counter()
+        if engine.batch_check(traffic) != ref[name]:
+            raise AssertionError(f"{name}: the single-device engine changed")
+        single[name] = len(traffic) / (time.perf_counter() - t1)
+    log(f"[14] single-device engine now (after phase 12's writes): pure-OR "
+        f"{single['pure-OR']:.0f}, mixed {single['mixed']:.0f} checks/s "
+        f"({time.perf_counter() - t0:.1f} s with its drain)")
+    log(f"[14] torch.cuda.device_count() = {torch.cuda.device_count()}")
+    sample = np.random.default_rng(SEED_SAMPLE)
+    entries, masked, report = {}, {}, {}
+    timing = None
+    meng = None
+    for n in MESH_SHARDS:
+        meng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        devices = None if n == 1 else ["cuda:0"] * n
+        meng = MeshCheckEngine(graph.store, graph.manager, mesh_devices=n,
+                               devices=devices, leopard={"enabled": False})
+        meng.snapshot()
+        torch.cuda.synchronize()
+        stats = meng.shard_stats()
+        log(f"[14] n = {n}: MeshCheckEngine(mesh_devices={n}, devices={devices}) "
+            f"on {[str(d) for d in meng.mesh.devices]}; built in "
+            f"{time.perf_counter() - t0:.2f} s: replicated snapshot "
+            f"{meng.projection_build_s:.3f} s, sharded stacks "
+            f"{meng.shard_build_s:.3f} s, their upload {meng.shard_upload_s:.3f} s; "
+            f"per shard (nodes, bytes on the card): "
+            f"{[(r['nodes'], r['device_bytes']) for r in stats]}")
+        report[n] = {"build_s": meng.shard_build_s, "upload_s": meng.shard_upload_s,
+                     "device_bytes": [r["device_bytes"] for r in stats]}
+        for name, traffic in (("pure-OR", queries), ("mixed", mixed_q)):
+            t0 = time.perf_counter()
+            dataset = f"mesh{n}-{name}"
+            r = mesh_serve(meng, traffic, name, rec, dataset, keep=n == 4)
+            bad = np.flatnonzero(np.asarray(r.out) != np.asarray(ref[name]))
+            if len(bad):
+                raise AssertionError(f"n = {n} {name}: {len(bad)} verdicts differ "
+                                     f"from the single-device engine's, first "
+                                     f"{traffic[int(bad[0])]}")
+            for i in sample.choice(len(traffic), ORACLE_SAMPLE // 2, replace=False):
+                want = engine.oracle.check_is_member(traffic[i])
+                if r.out[i] != want:
+                    raise AssertionError(f"{traffic[i]}: mesh {r.out[i]} oracle {want}")
+            missing = [k for k in MESH_KERNELS if name == "mixed" and r.launches[k] == 0]
+            if missing:
+                raise AssertionError(f"n = {n}: never launched on the mixed path: {missing}")
+            report[(n, name)] = r
+            log(f"[14] n = {n} {name}: {len(traffic)} checks in {r.dt:.4f} s = "
+                f"{len(traffic) / r.dt:.0f} checks/s (repeats: "
+                f"{', '.join(f'{len(traffic) / x:.0f}' for x in r.more)}; the "
+                f"single-device engine {single[name]:.0f}); verdicts equal the "
+                f"single-device engine's row for row and {ORACLE_SAMPLE // 2} "
+                f"sampled rows the oracle's; retries {r.retries} (general "
+                f"{r.general_retries}), oracle fallbacks {r.fallbacks}; replay "
+                f"{r.replay}; host ms per phase {r.phases}; launches "
+                f"{ {k: v for k, v in r.launches.items() if v} }; dispatches "
+                f"{ {shape_name(k): v for k, v in r.shapes.items()} } "
+                f"({time.perf_counter() - t0:.1f} s with the replay)")
+    # -- n = 4: writes, then Expand ------------------------------------------
+    from ketotpu_torch.engine.oracle import CheckEngine
+
+    oracle = CheckEngine(graph.store, graph.manager)
+    rng = np.random.default_rng(SEED_MESH_WRITES)
+    for name, ins, dels, touched, tier, _leo in write_script(graph, rng):
+        if name not in ("a1", "c"):
+            continue
+        f0, r0 = meng.fallbacks, meng.rebuilds
+        t0 = time.perf_counter()
+        graph.store.transact_relation_tuples(insert=ins, delete=dels)
+        rows = [RelationTuple.from_string(r) for r in touched] + [
+            mixed_q[int(i)] for i in rng.choice(len(mixed_q), WRITE_SAMPLE,
+                                                replace=False)]
+        got = meng.batch_check(rows)
+        dt = time.perf_counter() - t0
+        for q, v in zip(rows, got):
+            if v != oracle.check_is_member(q):
+                raise AssertionError(f"write batch {name}: {q}: mesh {v}")
+        if meng.last_write.get("tier") != tier or meng.rebuilds != r0:
+            raise AssertionError(f"write batch {name}: tier {meng.last_write}")
+        pairs = sum(s["overlay_pairs"] for s in meng.shard_stats())
+        dirty = sum(s["overlay_dirty"] for s in meng.shard_stats())
+        log(f"[14] n = 4 write batch {name} (+{len(ins)} / -{len(dels)}): tier "
+            f"{meng.last_write['tier']} (per-shard overlays: {pairs} pairs, "
+            f"{dirty} dirty rows), write to next verdict {dt * 1e3:.3f} ms "
+            f"(drain {meng.last_write.get('drain_s', 0) * 1e3:.3f}, overlay "
+            f"build {meng.last_write.get('build_s', 0) * 1e3:.3f}, upload "
+            f"{meng.last_write.get('upload_s', 0) * 1e3:.3f}); {len(rows)} rows "
+            f"equal the oracle's; {meng.fallbacks - f0} to the oracle")
+        if name == "c":
+            if meng.fallbacks == f0:
+                raise AssertionError("write batch c: no dirty row reached the oracle")
+            break
+    roots = [SubjectSet("Doc", graph.docs[int(i)], "parents") for i in
+             np.random.default_rng(SEED_EXPAND).integers(len(graph.docs), size=EXPAND_ROOTS)]
+    want = engine.batch_expand(roots, EXPAND_DEPTH)
+    t0 = time.perf_counter()
+    got = meng.batch_expand(roots, EXPAND_DEPTH)
+    dt_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = meng.batch_expand(roots, EXPAND_DEPTH)
+    dt = time.perf_counter() - t0
+    if [tree_json(t) for t in got] != [tree_json(t) for t in want] or \
+            [tree_json(t) for t in again] != [tree_json(t) for t in want]:
+        raise AssertionError("Expand through the replica != the single-device engine")
+    log(f"[14] n = 4 Expand: {EXPAND_ROOTS} Doc#parents trees through the replica "
+        f"equal the single-device engine's; first call {dt_first:.3f} s (the "
+        f"replica's upload), then {EXPAND_ROOTS / dt:.1f} trees/s; "
+        f"{meng.last_expand.get('over', 0)} over")
+    # -- timing: the new kernels and the masked ones on the n = 4 calls -------
+    g0 = meng._stacked[0]
+    t0 = time.perf_counter()
+    rows = time_kernels(g0, rec, "mesh4-mixed", (*MESH_KERNELS, *MESH_MASKED),
+                        sample=MESH_TIMED_SAMPLE)
+    log(f"[14] kernels timed on the n = 4 mixed run's calls in "
+        f"{time.perf_counter() - t0:.1f} s")
+    merges = _sampled(rec.calls["shard_merge"], "mesh4-mixed", MESH_TIMED_SAMPLE)
+    for _tag, args, _kw in merges:
+        if not torch.equal(LIBRARY["shard_merge"](args, {}), gs.merge_bits(*args)):
+            raise AssertionError("shard_merge: torch.amax differs from the kernel")
+    log(f"[14] shard_merge's library call (torch.amax over the partials) equals "
+        f"the kernel on the {len(merges)} timed calls")
+    r4 = report[(4, "mixed")]
+    for name in (*MESH_KERNELS, *MESH_MASKED):
+        per, lb = rows[name], r4.by_shape[name]
+        for s_, r in per.items():
+            log(f"[14] {name} at {shape_name(s_)} (n = 4, mixed): {r['ms']:.4f} "
+                f"ms/launch on the card (spread up to {r['spread_ms']}; host "
+                f"{r['host_ms']:.4f} ms per eager call), plain {r['plain_ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.6f} ms (bytes), {lb.get(s_, 0)} "
+                f"launches in the timed mixed run, mean of {r['calls']} sampled calls")
+        entry = {
+            "launches": r4.launches[name],
+            "ms": weighted(per, lb, "ms"), "plain_ms": weighted(per, lb, "plain_ms"),
+            "bound_ms": weighted(per, lb, "bound_ms"),
+            "launches_by_shape": {shape_name(s_): c for s_, c in lb.items()},
+            "ms_by_shape": {shape_name(s_): per[s_]["ms"] for s_ in lb},
+            "pure_or_launches": report[(4, "pure-OR")].launches[name],
+            "n1_launches": {t: report[(1, t)].launches[name]
+                            for t in ("pure-OR", "mixed")},
+        }
+        if name in MESH_KERNELS:
+            source, replaces = MESH_KERNELS[name]
+            entries[name] = {
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "max_abs_err": rec.err[name],
+                "bound_by": "bytes", "library_ms": weighted(per, lb, "library_ms"),
+                "path": "mesh4-mixed",
+                **entry}
+        else:
+            masked[name] = entry
+    return SimpleNamespace(entries=list(entries.values()), masked=masked,
+                           report=report, engine=meng)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2643,9 +3095,10 @@ def main() -> int:
     lg = leng.device_tables()
 
     # -- 11. timing ------------------------------------------------------------
-    rows = time_kernels(g, rec, "main", KERNELS)
-    mrows = time_kernels(g, rec, "mixed-main")
-    forced = time_kernels(g, rec, "mixed-main-forced", GEN_KERNELS)
+    rows = time_kernels(g, rec, "main", KERNELS, sample=MAIN_TIMED_SAMPLE)
+    mrows = time_kernels(g, rec, "mixed-main", sample=MAIN_TIMED_SAMPLE)
+    forced = time_kernels(g, rec, "mixed-main-forced", GEN_KERNELS,
+                          sample=MAIN_TIMED_SAMPLE)
     line = []
     busy = mbusy = 0.0
     for name, (source, replaces) in KERNELS.items():
@@ -2809,7 +3262,16 @@ def main() -> int:
         log(f"[13] {name}: {len(rec.calls[name])} calls held, kernel == plain "
             f"(max abs err {rec.err[name]})")
     log(f"[13] Expand phase in {time.perf_counter() - t0:.1f} s")
-    log(f"[13] total {time.perf_counter() - t_start:.1f} s")
+
+    # -- 14. the graph-sharded mesh -------------------------------------------
+    t0 = time.perf_counter()
+    mp = mesh_phase(graph, engine, queries, list(mixed_q))
+    for entry in line:
+        if entry["name"] in mp.masked:
+            entry["mesh_path"] = mp.masked[entry["name"]]
+    line.extend(mp.entries)
+    log(f"[14] mesh phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[14] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

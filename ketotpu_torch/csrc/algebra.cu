@@ -6,7 +6,13 @@
 // _construct_level without its prefix sum (gen_construct; the prefix sum is
 // K4, csrc/arena.cu), :320 _visited (gen_visited), :534 _collect_fast
 // (gen_collect), and the leaf-verdict map-back + up pass of :668
-// _general_body (gen_up, gen_pack).  The BFS sub-run over the leaves (:580
+// _general_body (gen_up, gen_pack).  On the graph-sharded mesh (the
+// shard= branch, :718-779) each shard classifies without folding its
+// dirty bits or capping the last level (gen_classify's `shard`: the owner
+// merge in csrc/shard.cu does both after it), gates the visited set on the
+// parent's owner (gen_construct's `owner`, :506-507 pmine) and activates
+// only the leaves it owns (gen_collect's `n_shards`, :597-604).  The BFS
+// sub-run over the leaves (:580
 // _fast_subrun) launches the tier-1 kernels of probe.cu, arena.cu,
 // children.cu and pack.cu as they are.  Plain versions: the _gen_*_plain
 // functions of engine/algebra.py, which reuse the JAX-shaped functions.
@@ -100,13 +106,14 @@ __device__ __forceinline__ int32_t& AX(const GenState& s, int col, int32_t c) {
 // One thread per task of the level (columns lo .. lo + n).  With qpack the
 // level is the roots, built first (level 0, n == q) from its rows ns, obj,
 // rel, depth and the active row `act`.  The level's live
-// count goes to occ[level] (one atomicAdd per block).
+// count goes to occ[level] (one atomicAdd per block).  With `shard` the
+// dirty fold and the depth cap wait for the owner merge.
 __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
                                int32_t n, int32_t level,
                                const int32_t* __restrict__ q_subj,
                                const int32_t* __restrict__ qpack,
                                const int32_t* __restrict__ act_row,
-                               int32_t last) {
+                               int32_t last, int32_t shard) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     bool live_slot = false;
     if (i < n) {
@@ -237,8 +244,10 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
         else cop = OP_OR;
 
         const int32_t qc = clampi(qid, 0, st.q - 1);
-        if (dirt) atomicOr(&st.q_dirty[qc], 1);
-        if (last && qid >= 0 && !resolved && count > 0) {
+        // the seed column is the classification's (before any depth cap)
+        const bool seed_out = seed && !resolved;
+        if (dirt && !shard) atomicOr(&st.q_dirty[qc], 1);
+        if (last && !shard && qid >= 0 && !resolved && count > 0) {
             // level budget exhausted: UNKNOWN + over (K_FAST tasks have
             // count 0 and stay for the sub-run)
             atomicOr(&st.q_over[qc], 1);
@@ -251,7 +260,7 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
         TK(st, T_RESOLVED, c) = resolved;
         TK(st, T_RES, c) = res;
         TK(st, T_COP, c) = cop;
-        TK(st, T_SEED, c) = seed && !resolved;
+        TK(st, T_SEED, c) = seed_out;
         TK(st, T_NCHILD, c) = 0;
         TK(st, T_FAST_ID, c) = -1;
         AX(st, A_NODE, c) = node;
@@ -274,12 +283,16 @@ __global__ void k_gen_classify(Graph g, Prog p, GenState st, int32_t lo,
 // Threads i < n update parent i of level lo (over / UNKNOWN / child count);
 // threads j < a build child j of level clo from K4's (offsets, parent,
 // ordinal).  Child threads read only parent fields no thread writes here.
+// With `owner` (the parent level's owner shards; this is shard `me`) only
+// the children of parents this shard owns enter the visited set.
 __global__ void k_gen_construct(Graph g, Prog p, GenState st, int32_t lo,
                                 int32_t n, int32_t clo, int32_t a,
                                 const int32_t* __restrict__ offsets,
                                 const int32_t* __restrict__ parent,
                                 const int32_t* __restrict__ ordinal,
-                                int32_t max_width) {
+                                int32_t max_width,
+                                const int32_t* __restrict__ owner,
+                                int32_t me) {
     const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) {
         const int32_t c = lo + i;
@@ -398,7 +411,7 @@ __global__ void k_gen_construct(Graph g, Prog p, GenState st, int32_t lo,
     TK(st, T_VSCOPE, cc) = valid ? ch_vscope : -1;
     TK(st, T_PARENT, cc) = valid ? ap : -1;
     TK(st, T_NEG, cc) = valid && ch_neg;
-    AX(st, A_EVC, cc) = c_edge && !trunc;
+    AX(st, A_EVC, cc) = c_edge && !trunc && (owner == nullptr || owner[aps] == me);
 }
 
 // -- gen_visited: _visited over one constructed level ---------------------------
@@ -510,8 +523,11 @@ k_gen_visited(GenState st, int32_t lo, int32_t a, int32_t* __restrict__ hbuf,
 
 // The leaf mask of every task of every level (the levels are consecutive
 // column ranges, so one scan gives each leaf the reference's running base).
-__global__ void k_gen_leaf_mask(GenState st, int32_t* __restrict__ m) {
+// On a shard of the mesh (n_shards > 0) the live-leaf count starts at 0.
+__global__ void k_gen_leaf_mask(GenState st, int32_t* __restrict__ m,
+                                int32_t n_shards) {
     const int32_t c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (c == 0 && n_shards > 0) st.occ[st.depth + 2] = 0;
     if (c >= st.total) return;
     m[c] = TK(st, T_KIND, c) == K_FAST && TK(st, T_QID, c) >= 0 &&
            TK(st, T_RESOLVED, c) == 0;
@@ -520,16 +536,49 @@ __global__ void k_gen_leaf_mask(GenState st, int32_t* __restrict__ m) {
 // Leaves land at their scan position (their slot id written back); those
 // past the buffer resolve UNKNOWN + over; slots past the leaf count get
 // the buffer's empty values.  occ[D + 1] = leaves, occ[D + 2] = placed.
+// On shard `me` of an n_shards mesh a placed leaf is live (its slot id as
+// its query) only if this shard owns its (ns, obj), and occ[D + 2] counts
+// the live ones.
+// One leaf of k_gen_leaf_emit (column c of the mask); returns whether it
+// is live.
+__device__ bool emit_leaf(GenState st, const int32_t* __restrict__ q_subj,
+                          const int32_t* __restrict__ pos, int32_t c, int32_t b,
+                          int32_t n_shards, int32_t me) {
+    const int32_t p = pos[c];
+    const int32_t qid = TK(st, T_QID, c);
+    if (p >= b) {
+        atomicOr(&st.q_over[clampi(qid, 0, st.q - 1)], 1);
+        TK(st, T_RESOLVED, c) = 1;
+        TK(st, T_RES, c) = R_UNKNOWN;
+        return false;
+    }
+    int32_t d = TK(st, T_D, c);
+    d = d < 0 ? 0 : d;
+    const int32_t ns = TK(st, T_NS, c), obj = TK(st, T_OBJ, c);
+    const bool live = n_shards <= 0 || shard_of(ns, obj, n_shards) == me;
+    st.leaves.qid[p] = live ? p : -1;
+    st.leaves.ns[p] = ns;
+    st.leaves.obj[p] = obj;
+    st.leaves.rel[p] = TK(st, T_REL, c);
+    st.leaves.d[p] = d < st.n_sched ? d : st.n_sched;
+    st.leaves.skip[p] = TK(st, T_SKIP, c) != 0;
+    st.leaves.force[p] = TK(st, T_FORCE, c) != 0;
+    st.leaf_subj[p] = q_subj[clampi(qid, 0, st.q - 1)];
+    TK(st, T_FAST_ID, c) = p;
+    return live;
+}
+
 __global__ void k_gen_leaf_emit(GenState st, const int32_t* __restrict__ q_subj,
                                 const int32_t* __restrict__ m,
                                 const int32_t* __restrict__ pos,
-                                const int32_t* __restrict__ total) {
+                                const int32_t* __restrict__ total,
+                                int32_t n_shards, int32_t me) {
     const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     const int32_t b = st.leaves.n;
     const int32_t tot = *total;
     if (i == 0) {
         st.occ[st.depth + 1] = tot;
-        st.occ[st.depth + 2] = tot < b ? tot : b;
+        if (n_shards <= 0) st.occ[st.depth + 2] = tot < b ? tot : b;
     }
     if (i < b && i >= tot) {
         st.leaves.qid[i] = -1;
@@ -541,27 +590,12 @@ __global__ void k_gen_leaf_emit(GenState st, const int32_t* __restrict__ q_subj,
         st.leaves.force[i] = 0;
         st.leaf_subj[i] = 0;
     }
-    if (i >= st.total || !m[i]) return;
-    const int32_t c = i;
-    const int32_t p = pos[c];
-    const int32_t qid = TK(st, T_QID, c);
-    if (p >= b) {
-        atomicOr(&st.q_over[clampi(qid, 0, st.q - 1)], 1);
-        TK(st, T_RESOLVED, c) = 1;
-        TK(st, T_RES, c) = R_UNKNOWN;
-        return;
+    bool live = false;
+    if (i < st.total && m[i]) live = emit_leaf(st, q_subj, pos, i, b, n_shards, me);
+    if (n_shards > 0) {
+        const int32_t placed = __syncthreads_count(live);
+        if (threadIdx.x == 0 && placed) atomicAdd(&st.occ[st.depth + 2], placed);
     }
-    int32_t d = TK(st, T_D, c);
-    d = d < 0 ? 0 : d;
-    st.leaves.qid[p] = p;
-    st.leaves.ns[p] = TK(st, T_NS, c);
-    st.leaves.obj[p] = TK(st, T_OBJ, c);
-    st.leaves.rel[p] = TK(st, T_REL, c);
-    st.leaves.d[p] = d < st.n_sched ? d : st.n_sched;
-    st.leaves.skip[p] = TK(st, T_SKIP, c) != 0;
-    st.leaves.force[p] = TK(st, T_FORCE, c) != 0;
-    st.leaf_subj[p] = q_subj[clampi(qid, 0, st.q - 1)];
-    TK(st, T_FAST_ID, c) = p;
 }
 
 // -- gen_up: leaf verdicts, combiners, counts into the parents -------------------
@@ -635,9 +669,9 @@ constexpr int kThreads = 256;
 KT_EXPORT int gen_classify(Graph g, Prog p, GenState st, int32_t lo, int32_t n,
                            int32_t level, const int32_t* q_subj,
                            const int32_t* qpack, const int32_t* act,
-                           int32_t last, cudaStream_t stream) {
+                           int32_t last, int32_t shard, cudaStream_t stream) {
     k_gen_classify<<<kt_blocks(n, kThreads), kThreads, 0, stream>>>(
-        g, p, st, lo, n, level, q_subj, qpack, act, last);
+        g, p, st, lo, n, level, q_subj, qpack, act, last, shard);
     return (int)cudaGetLastError();
 }
 
@@ -645,10 +679,11 @@ KT_EXPORT int gen_construct(Graph g, Prog p, GenState st, int32_t lo,
                             int32_t n, int32_t clo, int32_t a,
                             const int32_t* offsets, const int32_t* parent,
                             const int32_t* ordinal, int32_t max_width,
+                            const int32_t* owner, int32_t me,
                             cudaStream_t stream) {
     const int32_t work = n > a ? n : a;
     k_gen_construct<<<kt_blocks(work, kThreads), kThreads, 0, stream>>>(
-        g, p, st, lo, n, clo, a, offsets, parent, ordinal, max_width);
+        g, p, st, lo, n, clo, a, offsets, parent, ordinal, max_width, owner, me);
     return (int)cudaGetLastError();
 }
 
@@ -672,14 +707,15 @@ KT_EXPORT int gen_visited(GenState st, int32_t lo, int32_t a, int32_t* hf,
 // ceil(total / kScanTile).
 KT_EXPORT int gen_collect(GenState st, const int32_t* q_subj, int32_t* m,
                           int32_t* pos, int32_t* sum, int32_t* block_sums,
-                          cudaStream_t stream) {
-    k_gen_leaf_mask<<<kt_blocks(st.total, kThreads), kThreads, 0, stream>>>(st, m);
+                          int32_t n_shards, int32_t me, cudaStream_t stream) {
+    k_gen_leaf_mask<<<kt_blocks(st.total, kThreads), kThreads, 0, stream>>>(
+        st, m, n_shards);
     // -- grid-wide barrier: every mask bit is written --
     enqueue_scan(m, st.total, pos, sum, block_sums, stream);
     // -- grid-wide barrier: positions and the leaf count are final --
     const int32_t work = st.total > st.leaves.n ? st.total : st.leaves.n;
     k_gen_leaf_emit<<<kt_blocks(work, kThreads), kThreads, 0, stream>>>(
-        st, q_subj, m, pos, sum);
+        st, q_subj, m, pos, sum, n_shards, me);
     return (int)cudaGetLastError();
 }
 

@@ -90,6 +90,14 @@ __device__ __forceinline__ uint32_t mix32(int32_t a, int32_t b, uint32_t salt) {
     return h;
 }
 
+// The graph-sharded mesh's partition (engine/hashtab.py shard_of,
+// parallel/graphshard.py shard_of_np): the owner shard of a (namespace,
+// object), mix32 with salt 0, % n.
+__device__ __forceinline__ int32_t shard_of(int32_t ns, int32_t obj,
+                                            int32_t n_shards) {
+    return (int32_t)(mix32(ns, obj, kSalts[0]) % (uint32_t)n_shards);
+}
+
 // hashtab.lookup: payload (or slot) of the first match, found flag.
 // Probing past a bucket's end is safe: an entry of another bucket never
 // equals the query key.  Negative keys never match.

@@ -4,6 +4,9 @@
 //
 // Replaces the JAX package's engine/fastpath.py:448 _pack_scatter,
 // :175 _init_state and the output packing of :702 _run_fused_packed (K5);
+// on the graph-sharded mesh (K10) the same pack reads the routed children
+// as the rows parallel/graphshard.py:159 _route receives (pack_scatter_rows)
+// and the roots activate on their assigned shard (init_state's assign);
 // the level loop of :657 _fused_body is the host loop in
 // fastpath.run_fast_packed, which enqueues every level on one stream.
 // Plain versions: fastpath._pack_scatter_plain, _init_state_plain,
@@ -34,9 +37,41 @@ __device__ __forceinline__ int32_t pack_key(int32_t qid, int32_t ns, int32_t rel
                      (uint32_t)rel);
 }
 
-__device__ __forceinline__ bool child_alive(const Items& ch, int32_t i,
+// The children a pack reads: the arena's seven columns (ColSrc), or the
+// [n, 7] int32 rows a sharded level routed to this shard (RowSrc: qid, ns,
+// obj, rel, d, skip, force; a bool is any non-zero word).
+struct ColSrc {
+    Items it;
+    __device__ __forceinline__ int32_t qid(int32_t i) const { return it.qid[i]; }
+    __device__ __forceinline__ int32_t ns(int32_t i) const { return it.ns[i]; }
+    __device__ __forceinline__ int32_t obj(int32_t i) const { return it.obj[i]; }
+    __device__ __forceinline__ int32_t rel(int32_t i) const { return it.rel[i]; }
+    __device__ __forceinline__ int32_t d(int32_t i) const { return it.d[i]; }
+    __device__ __forceinline__ uint8_t skip(int32_t i) const { return it.skip[i]; }
+    __device__ __forceinline__ uint8_t force(int32_t i) const { return it.force[i]; }
+    __host__ __device__ int32_t n() const { return it.n; }
+};
+
+struct RowSrc {
+    const int32_t* r;
+    int32_t rows;
+    __device__ __forceinline__ int32_t at(int32_t i, int k) const {
+        return r[7 * (int64_t)i + k];
+    }
+    __device__ __forceinline__ int32_t qid(int32_t i) const { return at(i, 0); }
+    __device__ __forceinline__ int32_t ns(int32_t i) const { return at(i, 1); }
+    __device__ __forceinline__ int32_t obj(int32_t i) const { return at(i, 2); }
+    __device__ __forceinline__ int32_t rel(int32_t i) const { return at(i, 3); }
+    __device__ __forceinline__ int32_t d(int32_t i) const { return at(i, 4); }
+    __device__ __forceinline__ uint8_t skip(int32_t i) const { return at(i, 5) != 0; }
+    __device__ __forceinline__ uint8_t force(int32_t i) const { return at(i, 6) != 0; }
+    __host__ __device__ int32_t n() const { return rows; }
+};
+
+template <class Src>
+__device__ __forceinline__ bool child_alive(const Src& ch, int32_t i,
                                             const int32_t* q_found, int32_t nq) {
-    int32_t q = ch.qid[i];
+    int32_t q = ch.qid(i);
     return q >= 0 && q_found[clampi(q, 0, nq - 1)] == 0;
 }
 
@@ -63,13 +98,14 @@ __global__ void pack_fill(int32_t h_slots, int32_t* __restrict__ own,
 }
 
 // Owner pass: every alive child claims its slot; the largest index wins.
-__global__ void pack_owner(Items ch, const int32_t* __restrict__ q_found, int32_t nq,
+template <class Src>
+__global__ void pack_owner(Src ch, const int32_t* __restrict__ q_found, int32_t nq,
                            int32_t nsb, int32_t relb, int32_t h_slots,
                            int32_t* __restrict__ hslot, int32_t* __restrict__ own) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= ch.n) return;
-    int32_t k1 = pack_key(ch.qid[i], ch.ns[i], ch.rel[i], nsb, relb);
-    int32_t h = (int32_t)(mix32(k1, ch.obj[i], kPackSalt) & (uint32_t)(h_slots - 1));
+    if (i >= ch.n()) return;
+    int32_t k1 = pack_key(ch.qid(i), ch.ns(i), ch.rel(i), nsb, relb);
+    int32_t h = (int32_t)(mix32(k1, ch.obj(i), kPackSalt) & (uint32_t)(h_slots - 1));
     hslot[i] = h;
     if (child_alive(ch, i, q_found, nq)) atomicMax(&own[h], i);
 }
@@ -77,7 +113,8 @@ __global__ void pack_owner(Items ch, const int32_t* __restrict__ q_found, int32_
 // Merge pass: children with the owner's key merge into the slot (max d,
 // min skip, max force); survivors are owners and alive non-matching
 // colliders.
-__global__ void pack_merge(Items ch, const int32_t* __restrict__ q_found, int32_t nq,
+template <class Src>
+__global__ void pack_merge(Src ch, const int32_t* __restrict__ q_found, int32_t nq,
                            int32_t nsb, int32_t relb,
                            const int32_t* __restrict__ hslot,
                            const int32_t* __restrict__ own,
@@ -85,19 +122,19 @@ __global__ void pack_merge(Items ch, const int32_t* __restrict__ q_found, int32_
                            int32_t* __restrict__ force_tab,
                            int32_t* __restrict__ surv) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= ch.n) return;
+    if (i >= ch.n()) return;
     bool alive = child_alive(ch, i, q_found, nq);
     int32_t h = hslot[i];
     int32_t owner = own[h];
-    int32_t oc = clampi(owner, 0, ch.n - 1);
+    int32_t oc = clampi(owner, 0, ch.n() - 1);
     bool same = alive &&
-                pack_key(ch.qid[oc], ch.ns[oc], ch.rel[oc], nsb, relb) ==
-                    pack_key(ch.qid[i], ch.ns[i], ch.rel[i], nsb, relb) &&
-                ch.obj[oc] == ch.obj[i];
+                pack_key(ch.qid(oc), ch.ns(oc), ch.rel(oc), nsb, relb) ==
+                    pack_key(ch.qid(i), ch.ns(i), ch.rel(i), nsb, relb) &&
+                ch.obj(oc) == ch.obj(i);
     if (same) {
-        atomicMax(&d_tab[h], ch.d[i]);
-        atomicMin(&skip_tab[h], (int32_t)ch.skip[i]);
-        atomicMax(&force_tab[h], (int32_t)ch.force[i]);
+        atomicMax(&d_tab[h], ch.d(i));
+        atomicMin(&skip_tab[h], (int32_t)ch.skip(i));
+        atomicMax(&force_tab[h], (int32_t)ch.force(i));
     }
     bool is_owner = alive && owner == i;
     surv[i] = (is_owner || (alive && !same)) ? 1 : 0;
@@ -106,7 +143,8 @@ __global__ void pack_merge(Items ch, const int32_t* __restrict__ q_found, int32_
 // Emit pass: survivors land at their prefix-sum position; those past the
 // frontier mark their query over.  Thread 0 records the next level's
 // occupancy (the live items it receives).
-__global__ void pack_emit(Items ch, const int32_t* __restrict__ hslot,
+template <class Src>
+__global__ void pack_emit(Src ch, const int32_t* __restrict__ hslot,
                           const int32_t* __restrict__ own,
                           const int32_t* __restrict__ d_tab,
                           const int32_t* __restrict__ skip_tab,
@@ -121,9 +159,9 @@ __global__ void pack_emit(Items ch, const int32_t* __restrict__ hslot,
         int32_t t = *total;
         *occ_slot = t < out.n ? t : out.n;
     }
-    if (i >= ch.n || !surv[i]) return;
+    if (i >= ch.n() || !surv[i]) return;
     int32_t p = pos[i];
-    int32_t q = ch.qid[i];
+    int32_t q = ch.qid(i);
     if (p >= out.n) {
         atomicOr(&q_over[clampi(q, 0, nq - 1)], 1);
         return;
@@ -131,12 +169,42 @@ __global__ void pack_emit(Items ch, const int32_t* __restrict__ hslot,
     int32_t h = hslot[i];
     bool is_owner = own[h] == i;  // only alive children claim a slot
     out.qid[p] = q;
-    out.ns[p] = ch.ns[i];
-    out.obj[p] = ch.obj[i];
-    out.rel[p] = ch.rel[i];
-    out.d[p] = is_owner ? d_tab[h] : ch.d[i];
-    out.skip[p] = is_owner ? (uint8_t)(skip_tab[h] != 0) : ch.skip[i];
-    out.force[p] = is_owner ? (uint8_t)(force_tab[h] != 0) : ch.force[i];
+    out.ns[p] = ch.ns(i);
+    out.obj[p] = ch.obj(i);
+    out.rel[p] = ch.rel(i);
+    out.d[p] = is_owner ? d_tab[h] : ch.d(i);
+    out.skip[p] = is_owner ? (uint8_t)(skip_tab[h] != 0) : ch.skip(i);
+    out.force[p] = is_owner ? (uint8_t)(force_tab[h] != 0) : ch.force(i);
+}
+
+template <class Src>
+static int enqueue_pack(Src ch, const int32_t* q_found, const int32_t* q_over_in,
+                        int32_t* q_over_out, int32_t nq, int32_t nsb,
+                        int32_t relb, int32_t h_slots, int32_t* own,
+                        int32_t* d_tab, int32_t* skip_tab, int32_t* force_tab,
+                        int32_t* hslot, int32_t* surv, int32_t* pos,
+                        int32_t* total, int32_t* block_sums, Items out,
+                        int32_t* occ_slot, cudaStream_t stream) {
+    cudaMemcpyAsync(q_over_out, q_over_in, sizeof(int32_t) * nq,
+                    cudaMemcpyDeviceToDevice, stream);
+    const int threads = 256;
+    const int32_t n = ch.n();
+    int32_t fill_n = h_slots > out.n ? h_slots : out.n;
+    pack_fill<<<kt_blocks(fill_n, threads), threads, 0, stream>>>(
+        h_slots, own, d_tab, skip_tab, force_tab, out);
+    // -- grid-wide barrier: the table is empty --
+    pack_owner<<<kt_blocks(n, threads), threads, 0, stream>>>(
+        ch, q_found, nq, nsb, relb, h_slots, hslot, own);
+    // -- grid-wide barrier: every slot's owner is final --
+    pack_merge<<<kt_blocks(n, threads), threads, 0, stream>>>(
+        ch, q_found, nq, nsb, relb, hslot, own, d_tab, skip_tab, force_tab, surv);
+    // -- grid-wide barrier: merges and survivor flags are final --
+    enqueue_scan(surv, n, pos, total, block_sums, stream);
+    // -- grid-wide barrier: positions and the survivor total are final --
+    pack_emit<<<kt_blocks(n, threads), threads, 0, stream>>>(
+        ch, hslot, own, d_tab, skip_tab, force_tab, surv, pos, total, nq,
+        q_over_out, out, occ_slot);
+    return (int)cudaGetLastError();
 }
 
 // Scratch (int32): own, d_tab, skip_tab, force_tab [h_slots each];
@@ -148,41 +216,46 @@ KT_EXPORT int pack_scatter(Items ch, const int32_t* q_found,
                            int32_t* force_tab, int32_t* hslot, int32_t* surv,
                            int32_t* pos, int32_t* total, int32_t* block_sums,
                            Items out, int32_t* occ_slot, cudaStream_t stream) {
-    cudaMemcpyAsync(q_over_out, q_over_in, sizeof(int32_t) * nq,
-                    cudaMemcpyDeviceToDevice, stream);
-    const int threads = 256;
-    int32_t fill_n = h_slots > out.n ? h_slots : out.n;
-    pack_fill<<<kt_blocks(fill_n, threads), threads, 0, stream>>>(
-        h_slots, own, d_tab, skip_tab, force_tab, out);
-    // -- grid-wide barrier: the table is empty --
-    pack_owner<<<kt_blocks(ch.n, threads), threads, 0, stream>>>(
-        ch, q_found, nq, nsb, relb, h_slots, hslot, own);
-    // -- grid-wide barrier: every slot's owner is final --
-    pack_merge<<<kt_blocks(ch.n, threads), threads, 0, stream>>>(
-        ch, q_found, nq, nsb, relb, hslot, own, d_tab, skip_tab, force_tab, surv);
-    // -- grid-wide barrier: merges and survivor flags are final --
-    enqueue_scan(surv, ch.n, pos, total, block_sums, stream);
-    // -- grid-wide barrier: positions and the survivor total are final --
-    pack_emit<<<kt_blocks(ch.n, threads), threads, 0, stream>>>(
-        ch, hslot, own, d_tab, skip_tab, force_tab, surv, pos, total, nq,
-        q_over_out, out, occ_slot);
-    return (int)cudaGetLastError();
+    return enqueue_pack(ColSrc{ch}, q_found, q_over_in, q_over_out, nq, nsb,
+                        relb, h_slots, own, d_tab, skip_tab, force_tab, hslot,
+                        surv, pos, total, block_sums, out, occ_slot, stream);
+}
+
+// The same pack over n_rows routed children ([n_rows, 7] int32 rows, as a
+// sharded level receives them); scratch as pack_scatter's with ch.n =
+// n_rows.
+KT_EXPORT int pack_scatter_rows(const int32_t* rows, int32_t n_rows,
+                                const int32_t* q_found, const int32_t* q_over_in,
+                                int32_t* q_over_out, int32_t nq, int32_t nsb,
+                                int32_t relb, int32_t h_slots, int32_t* own,
+                                int32_t* d_tab, int32_t* skip_tab,
+                                int32_t* force_tab, int32_t* hslot,
+                                int32_t* surv, int32_t* pos, int32_t* total,
+                                int32_t* block_sums, Items out,
+                                int32_t* occ_slot, cudaStream_t stream) {
+    return enqueue_pack(RowSrc{rows, n_rows}, q_found, q_over_in, q_over_out,
+                        nq, nsb, relb, h_slots, own, d_tab, skip_tab,
+                        force_tab, hslot, surv, pos, total, block_sums, out,
+                        occ_slot, stream);
 }
 
 // _init_state: roots in slots 0..nq-1 from the packed query block (rows
 // ns, obj, rel, subj, depth of nq entries each, then any others) and its
 // active row `act`; depth clamped to the level count; the live-root count
-// goes to *occ0.
+// goes to *occ0.  With `assign` (a shard of the mesh), a root is live only
+// on the shard it is assigned to (assign[i] == me: _sharded_fast_run's
+// act & mine).
 __global__ void pack_init_state(const int32_t* __restrict__ qpack,
-                                const int32_t* __restrict__ act, int32_t nq,
-                                int32_t levels, Items f,
+                                const int32_t* __restrict__ act,
+                                const int32_t* __restrict__ assign, int32_t me,
+                                int32_t nq, int32_t levels, Items f,
                                 int32_t* __restrict__ q_found,
                                 int32_t* __restrict__ q_over,
                                 int32_t* __restrict__ occ0) {
     int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     bool in_q = false;
     if (i < f.n) {
-        in_q = i < nq && act[i] != 0;
+        in_q = i < nq && act[i] != 0 && (assign == nullptr || assign[i] == me);
         int32_t depth = in_q ? qpack[4 * nq + i] : 0;
         f.qid[i] = in_q ? i : -1;
         f.ns[i] = in_q ? qpack[i] : -1;
@@ -200,14 +273,15 @@ __global__ void pack_init_state(const int32_t* __restrict__ qpack,
     if (threadIdx.x == 0 && n_live > 0) atomicAdd(occ0, n_live);
 }
 
-KT_EXPORT int init_state(const int32_t* qpack, const int32_t* act, int32_t nq,
+KT_EXPORT int init_state(const int32_t* qpack, const int32_t* act,
+                         const int32_t* assign, int32_t me, int32_t nq,
                          int32_t levels, Items f, int32_t* q_found,
                          int32_t* q_over, int32_t* occ0, cudaStream_t stream) {
     cudaMemsetAsync(occ0, 0, sizeof(int32_t), stream);
     const int threads = 256;
     int32_t n = f.n > nq ? f.n : nq;
     pack_init_state<<<kt_blocks(n, threads), threads, 0, stream>>>(
-        qpack, act, nq, levels, f, q_found, q_over, occ0);
+        qpack, act, assign, me, nq, levels, f, q_found, q_over, occ0);
     return (int)cudaGetLastError();
 }
 

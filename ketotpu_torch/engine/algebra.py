@@ -41,8 +41,11 @@ The program is overlay-aware as in JAX: probes consult the ``om_`` /
 ``ovt_`` delta tables, a dirty or virtual node's edge rows read as empty,
 and a task that needed such a row (or an unfound leaf whose sub-run
 brushed one) sets its query's dirty code bit, which sends the row to the
-host oracle.  Not ported: the ``shard=`` branch of the JAX body (the
-sharded mesh, K10).
+host oracle.  The ``shard=`` branch of the JAX body (the graph-sharded
+mesh, K10) runs these same steps on every shard with three mask inputs
+(:func:`gen_classify`'s ``shard``, :func:`gen_construct`'s ``owner``,
+:func:`gen_collect`'s ``n_shards``) and the owner merges of
+``parallel/graphshard.py`` between them.
 """
 
 from __future__ import annotations
@@ -359,10 +362,13 @@ def _visited(vset, k1, k2, k3, k4, evc, A: int):
 
 
 def _construct_children(g: Tables, t, counts, aux, offsets, ap, ao, q_over, *,
-                        A: int, level_base: int, max_width: int, Q: int):
+                        A: int, level_base: int, max_width: int, Q: int,
+                        pmine: Optional[Tensor] = None):
     """The construction half of ``_construct_level`` after K4: the parents'
     capacity verdicts and every arena slot's child, plus the slots that
-    enter the visited set (``evc``).  Returns (t, child, evc, q_over)."""
+    enter the visited set (``evc``; on a shard of the mesh only the
+    children of the parents it owns, ``pmine``).  Returns (t, child, evc,
+    q_over)."""
     NS, R = g["f_direct_ok"].shape
     P = g["p_kind"].shape[0]
     dev = t["kind"].device
@@ -458,6 +464,10 @@ def _construct_children(g: Tables, t, counts, aux, offsets, ap, ao, q_over, *,
     pdeg = aux["deg"][aps]
     trunc = c_edge & (pdeg > max_width) & (eo >= max_width - 1)
     evc = c_edge & ~trunc
+    if pmine is not None:
+        # sharded: only the parent's owner gathered real edges, and the
+        # visited set is the shard's own
+        evc = evc & pmine[aps]
     ch_kind = torch.where(trunc, K_FAST, ch_kind)
     ch_d = torch.where(trunc, 0, ch_d)
 
@@ -497,7 +507,8 @@ def _apply_visited(child, vset, evc, q_over, A: int, Q: int):
 
 
 def _construct_level(g: Tables, t, count, aux, vset, q_over, *, A: int,
-                     level_base: int, max_width: int, Q: int):
+                     level_base: int, max_width: int, Q: int,
+                     pmine: Optional[Tensor] = None):
     """Allocate and build the next level's tasks: child allocation (K4),
     edge/program gathers, visited-set insertion.  ``q_over`` is int32 0/1.
     Returns (t, child, vset, q_over) like the JAX function."""
@@ -505,7 +516,7 @@ def _construct_level(g: Tables, t, count, aux, vset, q_over, *, A: int,
     offsets, _total, ap, ao = _arena_assign_plain(counts, A)
     t, child, evc, q_over = _construct_children(
         g, t, counts, aux, offsets, ap, ao, q_over, A=A, level_base=level_base,
-        max_width=max_width, Q=Q,
+        max_width=max_width, Q=Q, pmine=pmine,
     )
     child, vset, q_over = _apply_visited(child, vset, evc, q_over, A, Q)
     return t, child, vset, q_over
@@ -550,13 +561,15 @@ def _collect_fast(levels: List[Dict[str, Tensor]], q_subj, q_over, B: int, Q: in
     return out_levels, fb, q_over, base
 
 
-def _leaf_items(fb, levels: int) -> Items:
+def _leaf_items(fb, levels: int, active: Optional[Tensor] = None) -> Items:
     """The sub-run's level 0 from the leaf buffer: each leaf is its own
-    query (qid = slot), its depth capped at the schedule's level count."""
+    query (qid = slot), its depth capped at the schedule's level count; on
+    a shard of the mesh only the leaves it owns (``active``) are live."""
     B = fb["ns"].shape[0]
     iota = torch.arange(B, dtype=torch.int32, device=fb["ns"].device)
+    live = fb["valid"] if active is None else fb["valid"] & active
     return Items(
-        qid=_i32(torch.where(fb["valid"], iota, -1)),
+        qid=_i32(torch.where(live, iota, -1)),
         ns=fb["ns"].clone(), obj=fb["obj"].clone(), rel=fb["rel"].clone(),
         d=_i32(fb["d"].clamp(max=levels)),
         skip=fb["skip"].clone(), force=fb["force"].clone(),
@@ -698,18 +711,20 @@ def _launch(fn: str, *args) -> None:
 
 def gen_classify(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
                  qpack: Optional[Tensor] = None, act: Optional[Tensor] = None,
-                 last: bool = False) -> None:
+                 last: bool = False, shard: bool = False) -> None:
     """Classify one skeleton level in place (K7 ``_classify_level``; with
     ``qpack``, level 0's roots first, ``_init_roots``, from its rows ns,
     obj, rel, depth and the active row ``act``, default row 5): the task
     fields, the aux columns, the dirty bits, the level's live count into
     the occupancy; ``last`` also caps the tasks that still need children
-    (UNKNOWN + over)."""
+    (UNKNOWN + over).  On a shard of the mesh (``shard``) the dirty bits
+    and the cap wait for the owner merge
+    (``graphshard.merge_classified``)."""
     if qpack is not None and act is None:
         act = qpack[5]
     if st.tasks.device.type == "cpu":
         return _gen_classify_plain(g, st, level, q_subj, qpack=qpack, act=act,
-                                   last=last)
+                                   last=last, shard=shard)
     lo, n = st.span(level)
     dev = st.tasks.device
     kernels.require(q_subj, torch.int32, "q_subj", shape=(st.q,), device=dev)
@@ -719,12 +734,13 @@ def gen_classify(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
         kernels.require(act, torch.int32, "act", shape=(st.q,), device=dev)
     _launch("gen_classify", kernels.graph(g), kernels.prog(g), kernels.gen_state(st),
             lo, n, level, kernels.ptr(q_subj), kernels.ptr(qpack),
-            kernels.ptr(act), int(last))
+            kernels.ptr(act), int(last), int(shard))
 
 
 def _gen_classify_plain(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
                         qpack: Optional[Tensor] = None,
-                        act: Optional[Tensor] = None, last: bool = False) -> None:
+                        act: Optional[Tensor] = None, last: bool = False,
+                        shard: bool = False) -> None:
     Q = st.q
     if qpack is not None:
         t = _init_roots(qpack, Q, act)
@@ -732,8 +748,9 @@ def _gen_classify_plain(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
         t = {c: v for c, v in st.task_dict(level).items() if c in TASK_COLS[:12]}
     t, count, aux = _classify_level(g, t, q_subj)
     qc = t["qid"].clamp(0, Q - 1)
-    st.q_dirty.copy_(_scatter_or(st.q_dirty, qc, aux["dirt"]))
-    if last:
+    if not shard:
+        st.q_dirty.copy_(_scatter_or(st.q_dirty, qc, aux["dirt"]))
+    if last and not shard:
         # the level budget is exhausted: a task that still needs children
         # resolves UNKNOWN and its query falls back (K_FAST tasks never
         # take skeleton children, so they stay for the sub-run)
@@ -750,27 +767,33 @@ def _gen_classify_plain(g: Tables, st: GenState, level: int, q_subj: Tensor, *,
 
 
 def gen_construct(g: Tables, st: GenState, level: int, offsets: Tensor,
-                  parent: Tensor, ordinal: Tensor, *, max_width: int) -> None:
+                  parent: Tensor, ordinal: Tensor, *, max_width: int,
+                  owner: Optional[Tensor] = None, me: int = 0) -> None:
     """Build level ``level + 1`` from level ``level`` and K4's arena
     assignment (K7 ``_construct_level`` without the prefix sum and the
     visited set): the parents' over / UNKNOWN / child counts and one child
-    per arena slot, with its visited-set flag."""
+    per arena slot, with its visited-set flag.  On shard ``me`` of the mesh
+    ``owner`` (int32, the level's owner shards) keeps the flag to the
+    children of the parents it owns (the JAX ``pmine``)."""
     if st.tasks.device.type == "cpu":
         return _gen_construct_plain(g, st, level, offsets, parent, ordinal,
-                                    max_width=max_width)
+                                    max_width=max_width, owner=owner, me=me)
     lo, n = st.span(level)
     clo, a = st.span(level + 1)
     dev = st.tasks.device
     kernels.require(offsets, torch.int32, "offsets", shape=(n,), device=dev)
     kernels.require(parent, torch.int32, "parent", shape=(a,), device=dev)
     kernels.require(ordinal, torch.int32, "ordinal", shape=(a,), device=dev)
+    if owner is not None:
+        kernels.require(owner, torch.int32, "owner", shape=(n,), device=dev)
     _launch("gen_construct", kernels.graph(g), kernels.prog(g), kernels.gen_state(st),
             lo, n, clo, a, kernels.ptr(offsets), kernels.ptr(parent),
-            kernels.ptr(ordinal), max_width)
+            kernels.ptr(ordinal), max_width, kernels.ptr(owner), me)
 
 
 def _gen_construct_plain(g: Tables, st: GenState, level: int, offsets, parent,
-                         ordinal, *, max_width: int) -> None:
+                         ordinal, *, max_width: int,
+                         owner: Optional[Tensor] = None, me: int = 0) -> None:
     lo, _n = st.span(level)
     _clo, a = st.span(level + 1)
     t = st.task_dict(level)
@@ -778,6 +801,7 @@ def _gen_construct_plain(g: Tables, st: GenState, level: int, offsets, parent,
     t, child, evc, q_over = _construct_children(
         g, t, aux["acount"], aux, offsets, parent, ordinal, st.q_over,
         A=a, level_base=lo, max_width=max_width, Q=st.q,
+        pmine=None if owner is None else owner == me,
     )
     st.q_over.copy_(q_over)
     st.put_tasks(level, {c: t[c] for c in ("resolved", "res", "nchild")})
@@ -814,13 +838,16 @@ def _gen_visited_plain(st: GenState, level: int) -> None:
     st.put_tasks(level, {"kind": child["kind"], "d": child["d"]})
 
 
-def gen_collect(st: GenState, q_subj: Tensor) -> None:
+def gen_collect(st: GenState, q_subj: Tensor, *, n_shards: int = 0,
+                me: int = 0) -> None:
     """Compact every level's unresolved fast leaves into the sub-run's
     level 0 (K7 ``_collect_fast``): one scan over all levels, each leaf's
     slot id written back, leaves past the buffer resolved UNKNOWN + over;
-    the leaf count and the sub-run's first occupancy into ``occ``."""
+    the leaf count and the sub-run's first occupancy into ``occ``.  On
+    shard ``me`` of an ``n_shards`` mesh only the leaves whose (ns, obj)
+    it owns are live (the sharded ``_fast_subrun``'s activation)."""
     if st.tasks.device.type == "cpu":
-        return _gen_collect_plain(st, q_subj)
+        return _gen_collect_plain(st, q_subj, n_shards=n_shards, me=me)
     tot = st.tasks.shape[1]
     dev = st.tasks.device
     kernels.require(q_subj, torch.int32, "q_subj", shape=(st.q,), device=dev)
@@ -831,17 +858,21 @@ def gen_collect(st: GenState, q_subj: Tensor) -> None:
                              device=dev)
     _launch("gen_collect", kernels.gen_state(st), kernels.ptr(q_subj),
             kernels.ptr(scratch), kernels.ptr(pos), kernels.ptr(total),
-            kernels.ptr(block_sums))
+            kernels.ptr(block_sums), n_shards, me)
 
 
-def _gen_collect_plain(st: GenState, q_subj: Tensor) -> None:
+def _gen_collect_plain(st: GenState, q_subj: Tensor, *, n_shards: int = 0,
+                       me: int = 0) -> None:
     levels = [st.task_dict(L) for L in range(len(st.widths))]
     B = st.leaves.qid.shape[0]
     levels, fb, q_over, fast_n = _collect_fast(levels, q_subj, st.q_over, B, st.q)
     st.q_over.copy_(q_over)
     for L, t in enumerate(levels):
         st.put_tasks(L, {c: t[c] for c in ("fast_id", "resolved", "res")})
-    f = _leaf_items(fb, st.n_sched)
+    mine = None
+    if n_shards:
+        mine = hashtab.shard_of(fb["ns"], fb["obj"], n_shards) == me
+    f = _leaf_items(fb, st.n_sched, mine)
     for c in fp.ITEM_COLS:
         getattr(st.leaves, c).copy_(getattr(f, c))
     st.leaf_subj.copy_(fb["subj"])

@@ -199,6 +199,14 @@ class DeviceCheckEngine:
     """Batched permission checks on the card, oracle for what the BFS
     cannot answer."""
 
+    # the write path's second tier (the fold) and, in JAX, the background
+    # compactor; the graph-sharded engine (parallel/meshengine.py) opts out
+    # of both: its device state is per-shard tables with their own publish
+    # discipline, so a write the overlay cannot take re-projects (the
+    # background compactor itself is not ported)
+    supports_fold = True
+    supports_background_compaction = False
+
     def __init__(
         self,
         store,
@@ -429,7 +437,7 @@ class DeviceCheckEngine:
             self.overlay_applies += 1
             self._served_cursor = self._log_cursor
             w["tier"] = "overlay"
-        elif self._fold_locked(fingerprint):
+        elif self.supports_fold and self._fold_locked(fingerprint):
             w["tier"] = "fold"
         else:
             self._rebuild(fingerprint)
@@ -461,7 +469,7 @@ class DeviceCheckEngine:
         self._snap_fingerprint = fingerprint
         self._overlay = dl.OverlayState()
         self._overlay_active = False
-        old_shapes = self._array_shapes(self._device_arrays)
+        old_shapes = self._swap_shape_signature()
         self._install_device_arrays()
         self._sync_device()
         self.projection_build_s = t1 - t0
@@ -472,10 +480,15 @@ class DeviceCheckEngine:
         self._since_base = []
         self.last_compaction_mode = "rebuild"
         self.last_build_phases = {f"build_{k}": v for k, v in ph.items()}
-        if self._array_shapes(self._device_arrays) != old_shapes:
+        if self._swap_shape_signature() != old_shapes:
             with self._gen_lock:
                 self._gen_sched_cache.clear()  # a new graph: re-adapt once
         self._install_leopard()
+
+    def _swap_shape_signature(self) -> Optional[dict]:
+        """The shapes of the tables a projection ships (a change re-adapts
+        the general schedule); the mesh engine signs its sharded tables."""
+        return self._array_shapes(self._device_arrays)
 
     def _install_device_arrays(self) -> None:
         """Ship the projection: the base tables once per build, then the
@@ -558,7 +571,7 @@ class DeviceCheckEngine:
         except dl.FoldRejected:
             return False
         t1 = time.perf_counter()
-        old_shapes = self._array_shapes(self._device_arrays)
+        old_shapes = self._swap_shape_signature()
         self._snap = snap
         self._snap_fingerprint = fingerprint
         self._snap_cursor = self._log_cursor
@@ -575,7 +588,7 @@ class DeviceCheckEngine:
         self.last_build_phases = dict(ph)
         self.last_write.update(build_s=self.projection_build_s,
                                upload_s=self.projection_upload_s)
-        if self._array_shapes(self._device_arrays) != old_shapes:
+        if self._swap_shape_signature() != old_shapes:
             with self._gen_lock:
                 self._gen_sched_cache.clear()
         self._served_cursor = self._log_cursor
@@ -594,10 +607,16 @@ class DeviceCheckEngine:
         except leo.ClosureTooLarge:
             return
         idx.bind_vocab(self._vocab)
-        pairs = leodev.ship_pairs(idx, self.device)
+        pairs = self._ship_leopard(idx)
         self._leo = LeoState(idx, pairs, self._leo_tables(pairs))
         self.phase_seconds["leopard_build"] = (
             self.phase_seconds.get("leopard_build", 0.0) + idx.build_s)
+
+    def _ship_leopard(self, idx: leo.ClosureIndex):
+        """The closure index's pair columns on the card (K6 probes them),
+        None for an empty index.  A subclass that ships none answers tier 0
+        by the index's host search (the mesh engine)."""
+        return leodev.ship_pairs(idx, self.device)
 
     def _leopard_fold(self, changes) -> str:
         """Fold drained changes into the closure index: additions append
@@ -960,11 +979,16 @@ class DeviceCheckEngine:
         self._phase("expand_snapshot", t0)
         timings: Dict[str, float] = {}
         info: dict = {}
-        trees, over = xd.run_expand(
-            tables, snap, [subjects[i] for i in set_idx], rest_depth,
-            max_depth=self.max_depth, fanout=EXPAND_FANOUT, cap=EXPAND_CAP,
-            ov=ov, sub_expand=oracle._build, timings=timings, info=info,
-        )
+        if tables is None:
+            # no tables to walk (the mesh engine's replica past its
+            # budget): every root goes to the oracle
+            trees, over = [None] * len(set_idx), np.ones(len(set_idx), bool)
+        else:
+            trees, over = xd.run_expand(
+                tables, snap, [subjects[i] for i in set_idx], rest_depth,
+                max_depth=self.max_depth, fanout=EXPAND_FANOUT, cap=EXPAND_CAP,
+                ov=ov, sub_expand=oracle._build, timings=timings, info=info,
+            )
         for name, dt in timings.items():
             self.phase_seconds["expand_" + name] = (
                 self.phase_seconds.get("expand_" + name, 0.0) + dt)
@@ -1031,8 +1055,9 @@ class DeviceCheckEngine:
     def _leopard_answers(self, enc, err, general, leo_state: Optional[LeoState]):
         """(allowed, answered) bool arrays from the closure index, or None
         while the index is off: one binary search per row over the shipped
-        pair columns (one K6 launch), for every chunk size; only an index
-        with no pairs is searched on the host (there is nothing to find)."""
+        pair columns (one K6 launch), for every chunk size; an index with no
+        pair columns on the card (empty, or not shipped by a subclass) is
+        searched on the host."""
         if leo_state is None or self.strict_mode:
             return None
         q_ns, q_obj, q_rel, q_subj, q_depth = enc

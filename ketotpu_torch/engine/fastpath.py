@@ -181,14 +181,17 @@ def _scatter_or(flags: Tensor, idx: Tensor, bits: Tensor) -> Tensor:
 
 
 def init_state(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor,
-               act: Optional[Tensor] = None):
+               act: Optional[Tensor] = None, assign: Optional[Tensor] = None,
+               me: int = 0):
     """Roots in slots 0..Q-1 of a ``frontier``-slot frontier from the packed
     int32[R, Q] block (rows ns, obj, rel, subj, depth first; R >= 5) and
     its active row ``act`` (int32[Q]; default row 5, the int32[6, Q]
     block's); inactive queries never enter.  Depth is clamped to
     ``levels`` (the final level is probe only, which is sound only for d
-    <= 1).  Writes the live-root count into ``occ_out`` (int32[1]).
-    Returns (frontier, q_found, q_over, q_subj)."""
+    <= 1).  With ``assign`` (int32[Q], shard ``me`` of the graph-sharded
+    mesh) a root enters only where ``assign == me``.  Writes the live-root
+    count into ``occ_out`` (int32[1]).  Returns (frontier, q_found, q_over,
+    q_subj)."""
     q = qpack.shape[1]
     if q > frontier:
         raise ValueError(f"batch {q} exceeds frontier capacity {frontier}")
@@ -196,30 +199,36 @@ def init_state(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor,
         act = qpack[5]
     if qpack.device.type == "cpu":
         return _init_state_plain(qpack, frontier=frontier, levels=levels,
-                                 occ_out=occ_out, act=act)
+                                 occ_out=occ_out, act=act, assign=assign, me=me)
     dev = qpack.device
     kernels.require(qpack, torch.int32, "qpack", shape=(max(qpack.shape[0], 5), q))
     kernels.require(act, torch.int32, "act", shape=(q,), device=dev)
+    if assign is not None:
+        kernels.require(assign, torch.int32, "assign", shape=(q,), device=dev)
     kernels.require(occ_out, torch.int32, "occ_out", shape=(1,), device=dev)
     f = Items.empty(frontier, dev)
     q_found = torch.empty(q, dtype=torch.int32, device=dev)
     q_over = torch.empty(q, dtype=torch.int32, device=dev)
     kernels.launch(
-        "pack", "init_state", kernels.ptr(qpack), kernels.ptr(act), q, levels,
-        kernels.items(f), kernels.ptr(q_found), kernels.ptr(q_over),
-        kernels.ptr(occ_out), kernels.stream(),
+        "pack", "init_state", kernels.ptr(qpack), kernels.ptr(act),
+        kernels.ptr(assign), me, q, levels, kernels.items(f),
+        kernels.ptr(q_found), kernels.ptr(q_over), kernels.ptr(occ_out),
+        kernels.stream(),
     )
     kernels.LAUNCHES["init_state"] += 1
     return f, q_found, q_over, qpack[3]
 
 
 def _init_state_plain(qpack: Tensor, *, frontier: int, levels: int, occ_out: Tensor,
-                      act: Optional[Tensor] = None):
+                      act: Optional[Tensor] = None,
+                      assign: Optional[Tensor] = None, me: int = 0):
     q = qpack.shape[1]
     dev = qpack.device
     iota = torch.arange(frontier, dtype=torch.int32, device=dev)
     live = torch.zeros(frontier, dtype=torch.bool, device=dev)
     live[:q] = (qpack[5] if act is None else act) != 0
+    if assign is not None:
+        live[:q] &= assign == me
     in_q = (iota < q) & live
 
     def pad(row, fill):
@@ -532,7 +541,15 @@ def pack_phase(children: Items, q_found: Tensor, q_over: Tensor, *,
                          nsb=nsb, relb=relb, occ_out=occ_out)
 
 
-def _pack_scatter(children: Items, q_found: Tensor, q_over: Tensor, *,
+def rows_items(rows: Tensor) -> Items:
+    """The :class:`Items` view of routed children: an int32[n, 7] block of
+    rows (qid, ns, obj, rel, d, skip, force), as a shard of the mesh
+    receives them (``parallel/graphshard.py``)."""
+    return Items(*(rows[:, k].contiguous() for k in range(5)),
+                 rows[:, 5] != 0, rows[:, 6] != 0)
+
+
+def _pack_scatter(children, q_found: Tensor, q_over: Tensor, *,
                   frontier: int, nsb: int, relb: int,
                   occ_out: Optional[Tensor] = None):
     """Linear hash-scatter merge: every alive child scatters into a 2A-slot
@@ -540,16 +557,21 @@ def _pack_scatter(children: Items, q_found: Tensor, q_over: Tensor, *,
     key merge into it (max d, min skip, max force); alive colliders of other
     keys pass through.  Survivors compact by prefix sum; those past
     ``frontier`` mark their query over.  ``occ_out`` (int32[1]) receives
-    the number of live items placed."""
-    if children.qid.device.type == "cpu":
+    the number of live items placed.  ``children`` is an arena
+    (:class:`Items`) or the int32[A, 7] rows a shard of the mesh received
+    (:func:`rows_items`; the kernel reads the rows as they are)."""
+    rows = children if isinstance(children, Tensor) else None
+    if (children.device if rows is not None else children.qid.device).type == "cpu":
         return _pack_scatter_plain(children, q_found, q_over, frontier=frontier,
                                    nsb=nsb, relb=relb, occ_out=occ_out)
-    dev = children.qid.device
-    a = children.qid.shape[0]
+    dev = q_found.device
+    a = children.shape[0] if rows is not None else children.qid.shape[0]
     nq = q_found.shape[0]
     h = 1 << max((2 * a - 1).bit_length(), 4)
     kernels.require(q_found, torch.int32, "q_found", device=dev)
     kernels.require(q_over, torch.int32, "q_over", shape=(nq,), device=dev)
+    if rows is not None:
+        kernels.require(rows, torch.int32, "rows", shape=(a, 7), device=dev)
     if occ_out is not None:
         kernels.require(occ_out, torch.int32, "occ_out", shape=(1,), device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -559,8 +581,11 @@ def _pack_scatter(children: Items, q_found: Tensor, q_over: Tensor, *,
     block_sums = torch.empty(-(-max(a, 1) // _SCAN_TILE), **i32)
     out = Items.empty(frontier, dev)
     q_over_out = torch.empty(nq, **i32)
+    src = ((kernels.ptr(rows), a) if rows is not None
+           else (kernels.items(children),))
     kernels.launch(
-        "pack", "pack_scatter", kernels.items(children), kernels.ptr(q_found),
+        "pack", "pack_scatter_rows" if rows is not None else "pack_scatter",
+        *src, kernels.ptr(q_found),
         kernels.ptr(q_over), kernels.ptr(q_over_out), nq, nsb, relb, h,
         kernels.ptr(table[0]), kernels.ptr(table[1]), kernels.ptr(table[2]),
         kernels.ptr(table[3]), kernels.ptr(per_child[0]),
@@ -572,8 +597,10 @@ def _pack_scatter(children: Items, q_found: Tensor, q_over: Tensor, *,
     return out, q_over_out
 
 
-def _pack_scatter_plain(children: Items, q_found, q_over, *, frontier: int,
+def _pack_scatter_plain(children, q_found, q_over, *, frontier: int,
                         nsb: int, relb: int, occ_out: Optional[Tensor] = None):
+    if isinstance(children, Tensor):
+        children = rows_items(children)
     F = frontier
     dev = children.qid.device
     Q = q_found.shape[0]

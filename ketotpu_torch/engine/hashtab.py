@@ -448,6 +448,14 @@ def mix(a, b, salt):
     return h ^ (h >> 13)
 
 
+def shard_of(ns, obj, n_shards: int):
+    """The graph-sharded mesh's partition on torch tensors: the owner shard
+    of each (namespace, object), ``mix`` with salt 0, ``% n_shards``
+    (int32).  The host form is ``parallel/graphshard.shard_of_np``, the
+    CUDA form ``shard_of`` in ``csrc/common.cuh``."""
+    return (mix(ns, obj, int(_SALTS[0])) % n_shards).to(torch.int32)
+
+
 def _salts(device) -> "torch.Tensor":
     key = str(device)
     if key not in _salt_cache:

@@ -1,6 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are ``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand}.cu``
+The sources are
+``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand,shard}.cu``
 (plus the shared headers ``common.cuh``, ``scan.cuh`` and ``leopard.cuh``).
 Each ``.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface, under
@@ -12,7 +13,7 @@ with ``ctypes``; pointers and the stream travel as ``c_void_p``.
 The wrappers that launch the kernels live beside their plain PyTorch
 versions (``engine/fastpath.py``, ``engine/xutil.py``,
 ``engine/algebra.py``, ``leopard/device.py``, ``engine/fused.py``,
-``engine/expand_device.py``).  Each
+``engine/expand_device.py``, ``parallel/graphshard.py``).  Each
 wrapper adds one to its entry of :data:`LAUNCHES` where it launches, and
 nowhere else.
 Nothing here runs at import: the CPU tests import every module.
@@ -33,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave",
-           "expand")
+           "expand", "shard")
 HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +62,11 @@ LAUNCHES: Dict[str, int] = {
     "wave_pack": 0,
     "expand_roots": 0,
     "expand_level": 0,
+    "shard_owner": 0,
+    "shard_route": 0,
+    "shard_merge": 0,
+    "shard_merge_classified": 0,
+    "shard_merge_child": 0,
 }
 
 #: the largest visited set: its claim array fills the one block's shared
@@ -184,6 +190,13 @@ class GenState(ctypes.Structure):
     ]
 
 
+class MergeState(ctypes.Structure):
+    _fields_ = [
+        ("tasks", _P), ("aux", _P), ("q_over", _P), ("q_dirty", _P),
+        ("total", _I), ("q", _I),
+    ]
+
+
 class XTab(ctypes.Structure):
     _fields_ = [
         ("mem_row_ptr", _P), ("mem_ord_subj", _P), ("sub_ns", _P),
@@ -207,15 +220,18 @@ _SIGNATURES = {
     "pack": {
         "pack_scatter": [Items, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, Items, _P, _P],
-        "init_state": [_P, _P, _I, _I, Items, _P, _P, _P, _P],
+        "pack_scatter_rows": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, Items, _P, _P],
+        "init_state": [_P, _P, _P, _I, _I, _I, Items, _P, _P, _P, _P],
         "pack_verdicts": [_P, _P, _P, _I, _P, _P],
     },
     "algebra": {
-        "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _P, _I, _P],
+        "gen_classify": [Graph, Prog, GenState, _I, _I, _I, _P, _P, _P, _I, _I,
+                         _P],
         "gen_construct": [Graph, Prog, GenState, _I, _I, _I, _I, _P, _P, _P,
-                          _I, _P],
+                          _I, _P, _I, _P],
         "gen_visited": [GenState, _I, _I, _P, _P],
-        "gen_collect": [GenState, _P, _P, _P, _P, _P, _P],
+        "gen_collect": [GenState, _P, _P, _P, _P, _P, _I, _I, _P],
         "gen_up": [GenState, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "gen_pack": [GenState, _P],
     },
@@ -233,6 +249,14 @@ _SIGNATURES = {
         "expand_roots": [Graph, XTab, _P, _I, _I, _P, _P, _P, _P],
         "expand_level": [Graph, XTab, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P,
                          _I, _P, _P, _P, _P],
+    },
+    "shard": {
+        "shard_owner": [_P, _P, _I, _I, _P, _P],
+        "shard_route": [Items, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+        "shard_merge": [_P, _I, _I, _P, _P],
+        "shard_merge_classified": [_P, _P, _P, _I, _I, MergeState, _P, _I, _I,
+                                   _P],
+        "shard_merge_child": [_P, _P, _I, _I, _I, MergeState, _P],
     },
 }
 
@@ -374,6 +398,14 @@ def _graph(g: Dict[str, torch.Tensor]) -> Graph:
         n_row_ptr=g["row_ptr"].shape[0], n_edges=g["edge_hi"].shape[0],
         **overlay,
     )
+
+
+def merge_state(st) -> MergeState:
+    """The shard merges' view of an ``algebra.GenState``: its task and aux
+    columns and its over / dirty bits (validated by :func:`gen_state`)."""
+    cv = gen_state(st)
+    return MergeState(tasks=cv.tasks, aux=cv.aux, q_over=cv.q_over,
+                      q_dirty=cv.q_dirty, total=cv.total, q=cv.q)
 
 
 def xtab(g: Dict[str, torch.Tensor]) -> XTab:

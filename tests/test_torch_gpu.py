@@ -434,3 +434,132 @@ def test_expand_kernels_match_their_plain_versions_on_the_overlay(written):
     oracle = ExpandEngine(g.store, max_depth=eng.max_depth)
     assert [chip_smoke.tree_json(t) for t in trees] == [
         chip_smoke.tree_json(oracle.build_tree(r, 5)) for r in roots]
+
+
+# -- the graph-sharded mesh (K10) ------------------------------------------------
+
+
+def _cuda_mesh(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ketotpu_torch.parallel import make_mesh
+
+    return make_mesh(n, axis="shard", devices=["cuda:0"] * n)
+
+
+def _children(rng, a, dev):
+    """``a`` random children: a fifth dead, the rest over 4 namespaces and
+    a few thousand objects (so several land on each shard), 64 queries."""
+    qid = rng.integers(0, 64, a).astype(np.int32)
+    qid[rng.random(a) < 0.2] = -1
+
+    def col(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, a).astype(np.int32)).to(dev)
+
+    return fp.Items(torch.from_numpy(qid).to(dev), col(0, 4), col(0, 3000),
+                    col(0, 16), col(0, 6),
+                    torch.from_numpy(rng.random(a) < 0.5).to(dev),
+                    torch.from_numpy(rng.random(a) < 0.5).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("a,cap", [(1, 8), (5000, 8), (5000, 700),
+                                   (65536, 4096), (65536, 65536)])
+def test_shard_kernels_match_their_plain_versions(n, a, cap):
+    """shard_owner, shard_route (send block and over bits; the small caps
+    overflow) and shard_merge on the card against their plain versions."""
+    mesh = _cuda_mesh(n)
+    rng = np.random.default_rng(n * 100003 + a)
+    dev = mesh.devices[0]
+    ch = _children(rng, a, dev)
+    q_over = torch.from_numpy((rng.random(64) < 0.1).astype(np.int32)).to(dev)
+    rec = chip_smoke.Recorder()
+    rec.run("shard_owner", ch.ns, ch.obj, n)
+    send, qo = rec.run("shard_route", ch, q_over, n_shards=n, cap=cap)
+    stage = torch.from_numpy(rng.integers(0, 2, (n, 3, a)).astype(np.int32)).to(dev)
+    rec.run("shard_merge", stage)
+    assert all(e == 0 for e in rec.err.values())
+    alive = int((ch.qid >= 0).sum())
+    sent = int((send[:, 0] >= 0).sum())
+    if cap >= a:
+        assert sent == alive and torch.equal(qo, q_over)
+    elif a > 8 * n * cap:  # every destination overflows
+        assert sent == n * cap < alive and bool((qo > q_over).any())
+
+
+@pytest.fixture(scope="module")
+def mesh_engines(engine):
+    """The small synth graph on four shards of one card and on one."""
+    g, _eng = engine
+    from ketotpu_torch.parallel import MeshCheckEngine
+
+    return g, {n: MeshCheckEngine(g.store, g.manager, mesh_devices=n,
+                                  devices=["cuda:0"] * n) for n in (1, 4)}
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("frontier,arena", [(2048, 8192), (256, 96)])
+def test_sharded_check_kernels_match_their_plain_versions(mesh_engines, n,
+                                                          frontier, arena):
+    """The sharded fast run step by step (every kernel against its plain
+    version), its verdict bytes against the plain run's; the small caps
+    overflow the route and the frontier."""
+    from ketotpu_torch.parallel import graphshard as gs
+
+    g, meng = mesh_engines
+    eng = meng[n]
+    queries = synth_queries(g, min(512, frontier), seed=n)
+    enc = eng._encode(eng.snapshot(), queries, 0)
+    rec = chip_smoke.Recorder()
+    kw = dict(frontier=frontier, arena=arena, max_depth=eng.max_depth,
+              max_width=eng.max_width)
+    got = gs._sharded_fast(rec.mesh_ops(), eng._stacked, enc, eng.mesh, **kw)
+    want = gs._sharded_fast(gs._PLAIN_OPS, eng._stacked, enc, eng.mesh, **kw)
+    assert torch.equal(got, want)
+    assert all(e == 0 for e in rec.err.values())
+    assert rec.calls["shard_route"] and rec.calls["shard_merge"]
+    if arena < 8192:
+        assert ((got >> 1) & 1).any()
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("boost", [1, 4])
+def test_sharded_general_kernels_match_their_plain_versions(n, boost):
+    """The sharded tier-2 program step by step on the AND/NOT fixture
+    (every state against the plain version's), its codes and per-shard
+    occupancy rows against the plain program's."""
+    from ketotpu_torch.parallel import MeshCheckEngine
+    from ketotpu_torch.parallel import graphshard as gs
+
+    _cuda_mesh(n)
+    eng, batches = chip_smoke.fixture_engine(
+        MeshCheckEngine, mesh_devices=n, devices=["cuda:0"] * n)
+    rows = [t for name, b in batches.items() if name != "flood" for t in b]
+    enc, gi = eng.encode_general(rows)
+    qpack, (sizes, fast_b, fast_sched, vcap) = eng.pack_general(enc, gi, boost)
+    kw = dict(sizes=sizes, fast_b=fast_b, fast_sched=fast_sched,
+              max_width=eng.max_width, vcap=vcap)
+    rec = chip_smoke.Recorder()
+    got = gs.fetch_general(gs._sharded_general(rec.mesh_ops(), eng._stacked,
+                                               qpack, eng.mesh, **kw))
+    want = gs.fetch_general(gs._sharded_general(gs._PLAIN_OPS, eng._stacked,
+                                                qpack, eng.mesh, **kw))
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert all(e == 0 for e in rec.err.values())
+    for k in ("shard_owner", "shard_merge_classified", "shard_merge_child",
+              "gen_visited"):
+        assert rec.calls[k], k
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_mesh_engine_on_the_card_matches_the_single_engine(mesh_engines, engine,
+                                                           n):
+    g, meng = mesh_engines
+    _g, eng = engine
+    rows = synth_queries_mixed(g, 700, seed=11)
+    kernels.reset_launches()
+    got = meng[n].batch_check(rows)
+    assert got == eng.batch_check(rows)
+    assert got == [eng.oracle.check_is_member(q) for q in rows]
+    for k in chip_smoke.MESH_KERNELS:
+        assert kernels.LAUNCHES[k] > 0, k

@@ -162,3 +162,48 @@ def test_expand_on_cpu_launches_nothing_and_its_kernels_refuse_cpu_tables():
         txd.expand_level(tables, rec, cols, rec[:1], cols, cols, cols,
                          over=cols)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_mesh_engine_defaults_to_the_cards_and_raises_without_them(monkeypatch):
+    """The mesh engine's shards default to the first CUDA cards (no CPU
+    default), and it raises when fewer cards exist than shards."""
+    import inspect
+
+    from ketotpu_torch.parallel import MeshCheckEngine, make_mesh
+    from ketotpu_torch.storage.memory import InMemoryTupleStore
+
+    assert inspect.signature(MeshCheckEngine.__init__).parameters[
+        "devices"].default is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_mesh(2).devices == (torch.device("cuda", 0),
+                                    torch.device("cuda", 1))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert make_mesh(4).devices == ()
+    with pytest.raises(ValueError, match="only 0 devices"):
+        MeshCheckEngine(InMemoryTupleStore(), mesh_devices=1)
+
+
+def test_mesh_on_cpu_launches_nothing():
+    """Both sharded tiers take their plain versions for CPU tensors: a
+    general batch through a two-shard mesh on the CPU counts no launch."""
+    from ketotpu_torch.api.types import RelationTuple
+    from ketotpu_torch.opl.parser import parse
+    from ketotpu_torch.parallel import MeshCheckEngine
+    from ketotpu_torch.storage.memory import InMemoryTupleStore
+    from ketotpu_torch.storage.namespaces import StaticNamespaceManager
+    from torch_parity import ALGEBRA_BATCHES, ALGEBRA_OPL, algebra_tuples
+
+    namespaces, errs = parse(ALGEBRA_OPL)
+    assert not errs, errs
+    store = InMemoryTupleStore()
+    store.write_relation_tuples(
+        *[RelationTuple.from_string(s) for s in algebra_tuples()])
+    eng = MeshCheckEngine(store, StaticNamespaceManager(namespaces),
+                          mesh_devices=2, devices=["cpu", "cpu"])
+    kernels.reset_launches()
+    rows = [RelationTuple.from_string(s)
+            for s in ALGEBRA_BATCHES["andnot"] + ALGEBRA_BATCHES["visited"]]
+    got = eng.batch_check(rows)
+    assert any(got) and eng.general_rows > 0
+    assert eng.shard_route_counts().sum() > 0
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
