@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. build the CUDA kernels (tier 0, tier 1, the tier-2 algebra, the
-   fused wave and the Expand walk) from ``ketotpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) into ``build/ketotpu_torch/``;
+   fused wave, the Expand walk, the mesh and the radix sort) from
+   ``ketotpu_torch/csrc`` (one ``nvcc`` per source, all at once) into
+   ``build/ketotpu_torch/``;
 2. build the 10M-tuple synth graph, project and upload it, then hold every
    tier-1 kernel against its plain PyTorch version on the same CUDA
    tensors (tolerance 0), level by level, at every shape the engine
@@ -105,7 +106,23 @@ Phases, in order; any failure raises and exits non-zero:
    walk overflows, where exactly the over roots go to the oracle; then
    both kernels timed as in phase 11 (no library call), on the
    Doc#parents walk and on the wide one (the kernel line's
-   ``wide_path``).
+   ``wide_path``);
+14. the graph-sharded mesh (K10) at n = 1 and n = 4 shards of the card
+   (``mesh_phase``): both traffics, every kernel held step by step,
+   verdicts against the single-device engine's, writes and Expand
+   through the replica, the mesh kernels timed;
+15. the tenant plane (``tenant_phase``): 8,192 networks of Keto's ``nid``
+   multi-tenancy (``tenancy/``) over a ~10.6M-tuple store of qualified
+   tuples (namespace dim 65,536), so every frontier of a batch of more
+   than 2,048 rows packs by sort (K5b, ``pack_sort`` on the radix sort
+   ``lex_sort``) and smaller batches by the scatter; pure-OR and mixed
+   traffic in 8,192-row chunks and 1,024- and 2,048-row chunks, each
+   wave replayed with every step held against its plain version,
+   launches per wave shape equal to the replay's; tenant facades, a user
+   of one tenant denied on another's docs, a write through a tenant's
+   view, a tenant created after the traffic (one rebuild); ``pack_sort``
+   and ``lex_sort`` timed (library call: a stable ``torch.sort`` of the
+   keys packed into one int64), and ``pack_sort``'s share of each wave.
 
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
@@ -195,8 +212,14 @@ MESH_KERNELS = {
     "shard_merge_child": ("ketotpu_torch/csrc/shard.cu",
                           "ketotpu/engine/algebra.py:754"),
 }
+#: the sort-based pack (K5b) and the radix sort under it: CUDA source and
+#: the JAX function each replaces
+SORT_KERNELS = {
+    "pack_sort": ("ketotpu_torch/csrc/pack.cu", "ketotpu/engine/fastpath.py:515"),
+    "lex_sort": ("ketotpu_torch/csrc/sort.cu", "ketotpu/engine/xutil.py:81"),
+}
 ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS,
-               *EXPAND_KERNELS, *MESH_KERNELS)
+               *EXPAND_KERNELS, *MESH_KERNELS, *SORT_KERNELS)
 #: the tier-1 kernels a fused wave launches (its results stay on the card:
 #: no pack_verdicts)
 WAVE_FAST_KERNELS = ("init_state", "probe_level", "arena_assign",
@@ -265,6 +288,8 @@ def pairs():
         "arena_assign": (xutil.arena_assign, xutil._arena_assign_plain),
         "expand_children": (fp.expand_children, fp._expand_children_plain),
         "pack_scatter": (fp._pack_scatter, fp._pack_scatter_plain),
+        "pack_sort": (fp._pack_sort, fp._pack_sort_plain),
+        "lex_sort": (xutil.lex_sort, xutil._lex_sort_plain),
         "pack_verdicts": (fp.pack_verdicts, fp._pack_verdicts_plain),
         "gen_classify": (alg.gen_classify, alg._gen_classify_plain),
         "gen_construct": (alg.gen_construct, alg._gen_construct_plain),
@@ -338,6 +363,13 @@ class Recorder:
                      dict(enumerate(flatten(want) + [kw_plain[k] for k in outs])))
         self.calls[name].append((self.tag, args, kw) if self.keep
                                 else (self.tag, None, None))
+        if name == "pack_sort":
+            # the sort the pack ran, on the same keys, held on its own
+            from ketotpu_torch.engine import fastpath as fp
+
+            keys, pay = fp._sort_keys_plain(args[0], args[1])
+            self.run("lex_sort", keys, pay, bits=fp._sort_bits(
+                args[1].shape[0], kw["nsb"], kw["relb"]))
         return got
 
     def ops(self):
@@ -351,7 +383,7 @@ class Recorder:
 
         fast = fp._Ops(*(step(n) for n in (
             "init_state", "probe_level", "arena_assign", "expand_children",
-            "pack_scatter", "pack_verdicts")))
+            "pack_scatter", "pack_verdicts", "pack_sort")))
         return alg._GenOps(*(step(n) for n in (
             "gen_classify", "gen_construct", "gen_visited", "gen_collect",
             "gen_up", "gen_pack", "arena_assign")), fast)
@@ -369,6 +401,20 @@ class Recorder:
         return fdx.WaveOps(step("wave_tier0"), step("wave_lane"),
                            step("wave_gen_lane"), step("wave_pack"), fp._OPS,
                            alg._OPS)
+
+    def full_wave_ops(self):
+        """A fused wave's steps, every one through :meth:`run`: its own four
+        kernels, and its tier-1 and tier-2 steps (the packs of its levels,
+        of its retry lane and of the general sub-run among them)."""
+        from ketotpu_torch.engine import fused as fdx
+
+        def step(name):
+            return lambda *a, **k: self.run(name, *a, **k)
+
+        gen = self.ops()
+        return fdx.WaveOps(step("wave_tier0"), step("wave_lane"),
+                           step("wave_gen_lane"), step("wave_pack"), gen.fast,
+                           gen)
 
     def mesh_ops(self):
         """The sharded programs' steps (K10 and the K7 / tier-1 steps they
@@ -425,6 +471,7 @@ def check_kernels(g, qpack, sched, max_width, rec: Recorder, tag=None):
     dev = g["row_ptr"].device
     ns_dim, rel_dim = g["f_direct_ok"].shape
     nsb, relb = fp._pack_bits(ns_dim), fp._pack_bits(rel_dim)
+    pack = pack_name(qpack.shape[1], nsb, relb)
     levels = len(sched)
     qp = torch.from_numpy(qpack).to(dev)
     occ = torch.zeros(levels, dtype=torch.int32, device=dev)
@@ -440,12 +487,20 @@ def check_kernels(g, qpack, sched, max_width, rec: Recorder, tag=None):
         off, _tot, par, ordn = rec.run("arena_assign", lv.counts, a)
         ch, qo2 = rec.run("expand_children", g, f, lv, off, par, ordn, qf2, qo,
                           max_width=max_width)
-        f, qo = rec.run("pack_scatter", ch, qf2, qo2, frontier=sched[i + 1][0],
+        f, qo = rec.run(pack, ch, qf2, qo2, frontier=sched[i + 1][0],
                         nsb=nsb, relb=relb, occ_out=occ[i + 1:i + 2])
         qf = qf2
     out = torch.empty(qp.shape[1], dtype=torch.uint8, device=dev)
     rec.run("pack_verdicts", qf, qo, qd, out=out)
     return out.cpu().numpy(), occ.cpu().numpy()
+
+
+def pack_name(q: int, nsb: int, relb: int) -> str:
+    """The pack wrapper a level of a ``q``-query batch launches: the field
+    ``fastpath._pack_op`` picks, by name."""
+    from ketotpu_torch.engine import fastpath as fp
+
+    return fp._pack_op(fp._Ops._make(fp._Ops._fields), q, nsb, relb)
 
 
 def schedule(shape, max_depth):
@@ -701,18 +756,20 @@ def wave_key(plan):
     return ("wave", *plan.shape())
 
 
-def check_wave(plan, rec: Recorder, tag, qpack=None, kwargs=None):
+def check_wave(plan, rec: Recorder, tag, qpack=None, kwargs=None, full=False):
     """One fused wave with its four own kernels held against their plain
-    versions call by call (the tier-1 and tier-2 kernels inside run as the
-    engine runs them), then the whole int32 output against the plain
-    wave's (tolerance 0).  Returns the output on the host."""
+    versions call by call (with ``full``, its tier-1 and tier-2 kernels
+    too; else they run as the engine runs them), then the whole int32
+    output against the plain wave's (tolerance 0).  Returns the output on
+    the host."""
     from ketotpu_torch.engine import fused as fdx
 
     qpack = plan.qpack if qpack is None else qpack
     kwargs = plan.kwargs if kwargs is None else kwargs
     rec.tag = tag
     rec.dispatches[tag] += 1
-    out = fdx.run_wave(rec.wave_ops(), plan.tables, qpack, **kwargs)
+    ops = rec.full_wave_ops() if full else rec.wave_ops()
+    out = fdx.run_wave(ops, plan.tables, qpack, **kwargs)
     want = fdx.run_fused_wave_plain(plan.tables, qpack, **kwargs)
     if out.shape != want.shape or not torch.equal(out, want):
         bad = (out != want).nonzero().flatten()[:8].tolist()
@@ -739,7 +796,8 @@ def decode_wave(plan, out):
     return allowed, fallback | fast_fb
 
 
-def replay_waves(engine, queries, rec: Recorder, dataset: str, rest_depth=0):
+def replay_waves(engine, queries, rec: Recorder, dataset: str, rest_depth=0,
+                 full=False):
     """Every chunk of ``queries`` as the engine's wave, held step by step
     (:func:`check_wave`).  Returns per chunk (plan, output, allowed,
     fallback)."""
@@ -747,13 +805,13 @@ def replay_waves(engine, queries, rec: Recorder, dataset: str, rest_depth=0):
     mb = engine.max_batch
     for lo in range(0, len(queries), mb):
         plan = engine.plan_wave(queries[lo: lo + mb], rest_depth)
-        res = check_wave(plan, rec, (dataset, wave_key(plan)))
+        res = check_wave(plan, rec, (dataset, wave_key(plan)), full=full)
         out.append((plan, res, *decode_wave(plan, res)))
     return out
 
 
 def hold_timed_shapes(engine, queries, rec: Recorder, dataset, shapes,
-                      rest_depth=0):
+                      rest_depth=0, full=False):
     """Replay, on a chunk of the same Q, any wave shape the timed run
     dispatched that the replay did not hold (the adaptive tier-1 schedule
     may move between them)."""
@@ -768,7 +826,7 @@ def hold_timed_shapes(engine, queries, rec: Recorder, dataset, shapes,
             if plan.qpack.shape[1] == q:
                 kw = dict(plan.kwargs, fast_sched=fast, retry_sched=retry,
                           retry_lanes=lanes, gen=gen, gen_retry=gen_retry)
-                check_wave(plan, rec, (dataset, key), kwargs=kw)
+                check_wave(plan, rec, (dataset, key), kwargs=kw, full=full)
                 break
         else:
             raise AssertionError(f"no chunk of Q {q} to hold {shape_name(key)}")
@@ -1105,7 +1163,13 @@ def kernel_bytes(name, args, kw, g) -> int:
         b += live * (4 + 8 + 4)  # row pointer, edge word + object, found bit
         b += item * a + 2 * 4 * nq  # children out + over bits in and out
         return b
-    if name == "pack_scatter":
+    if name == "lex_sort":
+        keys, payload = args[0], args[1:]
+        nk, n = (keys.shape if isinstance(keys, torch.Tensor)
+                 else (len(keys), keys[0].shape[0]))
+        # every key and payload column read once and written once, sorted
+        return 8 * (nk + len(payload)) * n
+    if name in ("pack_scatter", "pack_sort"):
         ch, qf = args[0], args[1]
         if isinstance(ch, torch.Tensor):  # the rows a shard received
             a, row = ch.shape[0], 4 * ch.shape[1]
@@ -1114,7 +1178,8 @@ def kernel_bytes(name, args, kw, g) -> int:
             a, row = ch.qid.shape[0], item
             alive = int((ch.qid >= 0).sum())
         nq = qf.shape[0]
-        # the scratch dedup table is left out: it fits in L2 (pack.cu)
+        # the scratch (the dedup table; the sort's keys and permutations)
+        # is left out: it fits in L2 (pack.cu, sort.cuh)
         b = row * a + 4 * alive  # children + their found bits
         b += item * kw["frontier"] + 2 * 4 * nq + 4  # frontier, over bits, occ
         return b
@@ -1308,6 +1373,28 @@ LIBRARY = {
     # psum(x) > 0 of int32 0/1 partials is their max
     "shard_merge": lambda args, kw: torch.amax(args[0], 0),
 }
+def packed_sort(args, kw):
+    """The library yardstick of a ``lex_sort`` call: one stable
+    ``torch.sort`` of its keys packed into one int64 with the widths this
+    call's (non-negative) data needs, when they fit 63 bits; else None.
+    The packing is done here, outside the timed call."""
+    keys = args[0]
+    keys = keys if isinstance(keys, torch.Tensor) else torch.stack(keys)
+    if keys.numel() == 0 or int(keys.min()) < 0:
+        return None
+    widths = [max(int(k.max()).bit_length(), 1) for k in keys]
+    if sum(widths) > 63:
+        return None
+    packed = torch.zeros(keys.shape[1], dtype=torch.int64, device=keys.device)
+    for k, w in zip(keys, widths):
+        packed = (packed << w) | k.to(torch.int64)
+    return lambda: torch.sort(packed, stable=True)
+
+
+#: per kernel, a function of a call's arguments that prepares the library
+#: yardstick and returns it as a call to time (or None where it does not
+#: apply)
+LIBRARY_PREPARED = {"lex_sort": packed_sort}
 #: kernels timed as a graph of back-to-back calls (they leave their inputs
 #: as they found them)
 CALLS_TIMED = (*LEO_KERNELS, *WAVE_KERNELS)
@@ -1407,6 +1494,10 @@ def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS, sample=None)
             if name in LIBRARY:
                 r["library_ms"].append(device_ms(
                     lambda args=args, kw=kw: LIBRARY[name](args, kw)))
+            elif name in LIBRARY_PREPARED:
+                lib_fn = LIBRARY_PREPARED[name](args, kw)
+                if lib_fn is not None:
+                    r["library_ms"].append(device_ms(lib_fn))
             r["bound_ms"].append(
                 kernel_bytes(name, args, kw, g) / HBM_BYTES_PER_S * 1e3)
         rows[name] = {
@@ -2727,6 +2818,505 @@ def mesh_phase(graph, engine, queries, mixed_q):
                            report=report, engine=meng)
 
 
+# -- phase 15: the tenant plane at 8,192 tenants (K5b) ------------------------------
+
+#: networks on the plane (Keto's nid, persister.go:91-93; README
+#: "Multi-tenancy"), plus the default network the plane always holds; the
+#: last (smallest) network is created after the traffic
+TENANTS = 8192
+#: build_synth_columnar's scale (about 10.6M tuples), split over the
+#: tenants by Zipf (s = 1) shares, at least one of each kind per tenant
+TENANT_SCALE = dict(n_users=1_200_000, n_groups=25_000, n_folders=500_000,
+                    n_docs=6_500_000)
+TENANT_FANOUT = 4
+SEED_TENANTS, SEED_TENANT_TRAFFIC = 43, 47
+TENANT_SMALL_CHUNKS = (1024, 2048)  # chunks that stay on the scatter
+TENANT_FACADES = 3  # tenants served through TenantCheckEngine
+TENANT_FACADE_ROWS = 512
+TENANT_ISOLATION = 256  # rows of one tenant's user on another's doc
+TENANT_TIMED_SAMPLE = 4  # calls timed per kernel and wave shape
+#: the unit separator of a qualified namespace (tenancy/store.py SEP)
+NS_SEP = "\x1f"
+
+
+def tenant_nid(t: int) -> str:
+    return f"n{t:04d}"
+
+
+def zipf_sizes(total: int, n: int) -> np.ndarray:
+    """``n`` Zipf (s = 1) shares of ``total``, at least 1 each."""
+    w = 1.0 / np.arange(1, n + 1)
+    return np.maximum(1, np.round(total * w / w.sum())).astype(np.int64)
+
+
+def build_tenant_columnar(n_tenants=None, seed=SEED_TENANTS, scale=None,
+                          fanout=TENANT_FANOUT):
+    """The synth graph's shape per tenant, at each tenant's Zipf share of
+    ``scale``, under qualified namespaces (``{nid}\\x1f{ns}``), built as id
+    columns as ``build_synth_columnar`` builds them.  Names are unique over
+    the plane (``u{i}``, ``g{i}``, ``f{i}``, ``d{i}``), so a user belongs
+    to one tenant.  The last tenant's rows are kept out of the store, as
+    unqualified tuples to write through its view once it is created.
+    Returns the store, the base namespace manager and the id ranges."""
+    from ketotpu_torch.api.types import RelationTuple, SubjectID, SubjectSet
+    from ketotpu_torch.engine.vocab import Vocab
+    from ketotpu_torch.opl.parser import parse
+    from ketotpu_torch.storage.columnar import ColumnarTupleStore
+    from ketotpu_torch.storage.namespaces import StaticNamespaceManager
+    from ketotpu_torch.utils.synth import SYNTH_OPL
+
+    rng = np.random.default_rng(seed)
+    namespaces, errors = parse(SYNTH_OPL)
+    assert not errors, errors
+    T = TENANTS if n_tenants is None else n_tenants
+    scale = TENANT_SCALE if scale is None else scale
+    nids = [tenant_nid(t) for t in range(T)]
+    size = {k: zipf_sizes(v, T) for k, v in scale.items()}
+    base = {k: np.concatenate([[0], np.cumsum(v)[:-1]]) for k, v in size.items()}
+    owner = {k: np.repeat(np.arange(T), v) for k, v in size.items()}
+    U, G, F, D = (int(size[k].sum()) for k in (
+        "n_users", "n_groups", "n_folders", "n_docs"))
+    v = Vocab()
+    fams = ("Group", "Folder", "Doc")
+    v.namespaces._ids = {f"{nid}{NS_SEP}{fam}": 3 * t + j
+                         for t, nid in enumerate(nids) for j, fam in enumerate(fams)}
+    objs = {f"g{i}": i for i in range(G)}
+    objs.update((f"f{i}", G + i) for i in range(F))
+    objs.update((f"d{i}", G + F + i) for i in range(D))
+    v.objects._ids = objs
+    R_EMPTY = v.relations.intern("")
+    rel_id = {r: v.relations.intern(r) for r in (
+        "members", "parents", "viewers", "owners", "banned")}
+    subs = {f"id:u{i}": i for i in range(U)}
+    gt, ft = owner["n_groups"], owner["n_folders"]
+    subs.update((f"set:{nids[t]}{NS_SEP}Group:g{i}#members", U + i)
+                for i, t in enumerate(gt.tolist()))
+    subs.update((f"set:{nids[t]}{NS_SEP}Folder:f{i}#", U + G + i)
+                for i, t in enumerate(ft.tolist()))
+    v.subjects._ids = subs
+    OBJ_F, OBJ_D, SUB_G, SUB_F = G, G + F, U, U + G
+
+    def local(kind):
+        return np.arange(int(size[kind].sum())) - base[kind][owner[kind]]
+
+    def pick(kind, tenants):
+        """A uniform random item of ``kind`` in each row's tenant."""
+        return base[kind][tenants] + (
+            rng.random(len(tenants)) * size[kind][tenants]).astype(np.int64)
+
+    segs = []
+
+    def seg(tenants, fam, obj, rel, subj, s_fam=None, s_obj=None, s_rel=-1):
+        n = len(obj)
+        is_set = s_fam is not None
+        segs.append({
+            "ns": (3 * tenants + fams.index(fam)).astype(np.int32),
+            "obj": np.asarray(obj, np.int32),
+            "rel": np.full(n, rel, np.int32),
+            "subj": np.asarray(subj, np.int32),
+            "is_set": np.full(n, int(is_set), np.int32),
+            "s_ns": ((3 * tenants + fams.index(s_fam)).astype(np.int32)
+                     if is_set else np.full(n, -1, np.int32)),
+            "s_obj": (np.asarray(s_obj, np.int32) if is_set
+                      else np.full(n, -1, np.int32)),
+            "s_rel": np.full(n, s_rel, np.int32),
+        })
+
+    ut, lu = owner["n_users"], local("n_users")
+    # group membership: a tenant's users spread over its groups
+    seg(ut, "Group", base["n_groups"][ut] + lu % size["n_groups"][ut],
+        rel_id["members"], np.arange(U))
+    # nested groups: every 3rd of a tenant's groups is a member of the one before
+    lg = local("n_groups")
+    gi = np.flatnonzero(lg % 3 == 1)
+    seg(gt[gi], "Group", gi - 1, rel_id["members"], SUB_G + gi, "Group", gi,
+        rel_id["members"])
+    # each tenant's folder tree
+    lf = local("n_folders")
+    fi = np.flatnonzero(lf >= 1)
+    par = base["n_folders"][ft[fi]] + (lf[fi] - 1) // fanout
+    seg(ft[fi], "Folder", OBJ_F + fi, rel_id["parents"], SUB_F + par, "Folder",
+        OBJ_F + par, R_EMPTY)
+    f3, f5, f4 = (np.flatnonzero(lf % k == 0) for k in (3, 5, 4))
+    seg(ft[f3], "Folder", OBJ_F + f3, rel_id["viewers"], pick("n_users", ft[f3]))
+    seg(ft[f5], "Folder", OBJ_F + f5, rel_id["owners"], pick("n_users", ft[f5]))
+    g4 = pick("n_groups", ft[f4])
+    seg(ft[f4], "Folder", OBJ_F + f4, rel_id["viewers"], SUB_G + g4, "Group",
+        g4, rel_id["members"])
+    # docs under their tenant's folders, with occasional direct grants
+    dt, ld = owner["n_docs"], local("n_docs")
+    doc_folder = pick("n_folders", dt)
+    seg(dt, "Doc", OBJ_D + np.arange(D), rel_id["parents"], SUB_F + doc_folder,
+        "Folder", OBJ_F + doc_folder, R_EMPTY)
+    for k, rel in ((7, "viewers"), (11, "owners"), (13, "banned")):
+        di = np.flatnonzero(ld % k == 0)
+        seg(dt[di], "Doc", OBJ_D + di, rel_id[rel], pick("n_users", dt[di]))
+    cols = {k: np.concatenate([s[k] for s in segs]) for k in segs[0]}
+    late = cols["ns"] // 3 == T - 1
+    store = ColumnarTupleStore(v)
+    store.bulk_load_ids({k: c[~late] for k, c in cols.items()})
+    # the late tenant's rows as unqualified tuples for its view
+    objs_s, rels_s = v.objects.strings(), v.relations.strings()
+    late_rows = []
+    for i in np.flatnonzero(late):
+        fam = fams[cols["ns"][i] % 3]
+        if cols["is_set"][i]:
+            subj = SubjectSet(fams[cols["s_ns"][i] % 3], objs_s[cols["s_obj"][i]],
+                              rels_s[cols["s_rel"][i]])
+        else:
+            subj = SubjectID(f"u{cols['subj'][i]}")
+        late_rows.append(RelationTuple(fam, objs_s[cols["obj"][i]],
+                                       rels_s[cols["rel"][i]], subj))
+    # folders with a direct user viewer (grant-derived doc checks)
+    folder_viewer = np.full(F, -1, np.int64)
+    folder_viewer[f3] = segs[3]["subj"]
+    return SimpleNamespace(
+        store=store, manager=StaticNamespaceManager(namespaces), nids=nids,
+        size=size, base=base, owner=owner, late_rows=late_rows,
+        n_loaded=int((~late).sum()), doc_folder=doc_folder,
+        folder_viewer=folder_viewer,
+        doc_viewer=(segs[7]["obj"] - OBJ_D, segs[7]["subj"]))
+
+
+def tenant_row(tg, t, fam, obj, rel, subj):
+    """One check of tenant ``t`` (qualified): ``subj`` a user index or a
+    (family, object) subject set."""
+    from ketotpu_torch.api.types import RelationTuple, SubjectID, SubjectSet
+
+    q = f"{tg.nids[t]}{NS_SEP}"
+    if isinstance(subj, tuple):
+        s = SubjectSet(q + subj[0], subj[1], "members")
+    else:
+        s = SubjectID(f"u{subj}")
+    return RelationTuple(q + fam, obj, rel, s)
+
+
+def tenant_queries(tg, n, rng, general_frac=0.0, subject_set_frac=0.0,
+                   granted=0.0, tenants=None):
+    """``n`` Doc checks with tenants drawn in proportion to their size (a
+    uniform doc of the loaded tenants, or of ``tenants``), a user of the
+    doc's tenant; with ``general_frac`` some are Doc#edit (AND/NOT), with
+    ``subject_set_frac`` some ask for a group of the tenant; a ``granted``
+    share is derived from grants (a direct viewer of the doc, or a direct
+    viewer of its folder)."""
+    docs_loaded = int(tg.base["n_docs"][-1])
+    if tenants is None:
+        docs = np.arange(docs_loaded)
+    else:
+        docs = np.concatenate([tg.base["n_docs"][t] + np.arange(tg.size["n_docs"][t])
+                               for t in tenants])
+    out = []
+    n_grant = int(n * granted)
+    dv_doc, dv_user = tg.doc_viewer
+    dv_ok = np.isin(dv_doc, docs)
+    dv_doc, dv_user = dv_doc[dv_ok], dv_user[dv_ok]
+    fv_docs = docs[tg.folder_viewer[tg.doc_folder[docs]] >= 0]
+    for k in range(n):
+        if k < n_grant and k % 2 == 0 and len(dv_doc):
+            j = int(rng.integers(len(dv_doc)))
+            d, u = int(dv_doc[j]), int(dv_user[j])
+        elif k < n_grant and len(fv_docs):
+            d = int(fv_docs[int(rng.integers(len(fv_docs)))])
+            u = int(tg.folder_viewer[tg.doc_folder[d]])
+        else:
+            d = int(docs[int(rng.integers(len(docs)))])
+            t = int(tg.owner["n_docs"][d])
+            u = int(tg.base["n_users"][t] + rng.integers(tg.size["n_users"][t]))
+        t = int(tg.owner["n_docs"][d])
+        rel = "edit" if rng.random() < general_frac else "view"
+        subj = u
+        if rng.random() < subject_set_frac:
+            g = int(tg.base["n_groups"][t] + rng.integers(tg.size["n_groups"][t]))
+            subj = ("Group", f"g{g}")
+        out.append(tenant_row(tg, t, "Doc", f"d{d}", rel, subj))
+    return [out[i] for i in rng.permutation(n)]
+
+
+def key_bits(q: int, ns_dim: int, rel_dim: int) -> str:
+    from ketotpu_torch.engine import fastpath as fp
+
+    qb, nsb, relb = fp._pack_bits(q), fp._pack_bits(ns_dim), fp._pack_bits(rel_dim)
+    return (f"Q {q}: {qb} + {nsb} + {relb} = {qb + nsb + relb} key bits -> "
+            f"{pack_name(q, nsb, relb)}")
+
+
+def wave_packs(shape, ns_dim, rel_dim):
+    """Key bits of every pack a wave of ``shape`` runs: its tier-1 passes
+    (Q) and its general sub-runs (their leaf buffers)."""
+    _, q, fast, _retry, _lanes, gen, gen_retry, _leo = shape
+    out = [key_bits(q, ns_dim, rel_dim)] if fast else []
+    for gs in (gen, gen_retry):
+        if gs is not None:
+            out.append("sub-run " + key_bits(gs[1], ns_dim, rel_dim))
+    return out
+
+
+def tenant_traffic(engine, rec, name, queries, oracle, ns_dim, rel_dim):
+    """One traffic on the tenant plane: warmed, timed with the launch
+    counts set to 0 just before and read just after, every chunk replayed
+    as a wave with every step held against its plain version, the timed
+    run's shapes held, the engine's launches per kernel equal to the
+    replay's per wave shape, verdicts equal to the replay's and sampled
+    rows to the oracle's."""
+    engine.batch_check(queries)
+    engine.batch_check(queries)  # warm twice: the general shapes freeze
+    out, dt, launches, cnt, shapes, phases, more = timed(engine, queries)
+    replay = replay_waves(engine, queries, rec, name, full=True)
+    hold_timed_shapes(engine, queries, rec, name, shapes, full=True)
+    allowed = np.concatenate([a for _p, _o, a, _f in replay])
+    fb = np.concatenate([f for _p, _o, _a, f in replay])
+    got = np.asarray(out)
+    if (allowed[~fb] != got[~fb]).any():
+        raise AssertionError(f"{name}: batch_check != the wave replay")
+    by_shape = expected_launches(rec.calls, rec.dispatches, name, shapes)
+    for k, n in launches.items():
+        if sum(by_shape.get(k, {}).values()) != n:
+            raise AssertionError(f"{name}: {k} launched {n} times, the replay's "
+                                 f"{by_shape.get(k)} by wave shape")
+    rng = np.random.default_rng(SEED_SAMPLE)
+    for i in rng.choice(len(queries), min(ORACLE_SAMPLE, len(queries)),
+                        replace=False):
+        if got[i] != oracle.check_is_member(queries[i]):
+            raise AssertionError(f"{name}: {queries[i]}: device {got[i]}")
+    log(f"[15] {name}: {len(queries)} checks in {dt:.4f} s = "
+        f"{len(queries) / dt:.0f} checks/s (repeats: "
+        f"{', '.join(f'{len(queries) / x:.0f}' for x in more)} checks/s); "
+        f"allowed {int(got.sum())}; general rows {cnt['general_rows']}, "
+        f"retries {cnt['retries']}, oracle fallbacks {cnt['fallbacks']}; waves "
+        f"{cnt['fused_waves']}; tier rows {cnt['tier_rows']}; "
+        f"{ORACLE_SAMPLE} sampled rows equal the oracle's")
+    log(f"[15] {name}: waves { {shape_name(k): v for k, v in shapes.items()} }; "
+        f"packs {sorted({b for k in shapes for b in wave_packs(k, ns_dim, rel_dim)})}")
+    log(f"[15] {name}: launches {launches}; host ms per phase {phases}")
+    return SimpleNamespace(out=out, dt=dt, more=more, launches=launches,
+                           shapes=shapes, by_shape=by_shape, counts=cnt,
+                           phases=phases, replay=replay)
+
+
+def tenant_phase():
+    """Phase 15: the tenant plane at 8,192 tenants on one card.  A fused
+    engine (Leopard on, ``max_pairs`` 2^25) over a ~10.6M-tuple store of
+    8,191 tenants' qualified tuples: namespace dim 65,536, so a batch of
+    more than 2,048 rows packs every level by sort (K5b) on the radix sort.
+    Pure-OR and mixed traffic in 8,192-row chunks, 1,024- and 2,048-row
+    chunks on the scatter, tenant facades, cross-tenant isolation, a write
+    through a tenant's view and a tenant created after the traffic; every
+    kernel held against its plain version at every wave shape; pack_sort
+    and lex_sort timed.  Returns the kernel line's entries for them."""
+    from ketotpu_torch.api.types import RelationTuple, SubjectID, TooManyRequestsError
+    from ketotpu_torch.engine import fused as fdx
+    from ketotpu_torch.engine.device import DeviceCheckEngine
+    from ketotpu_torch.tenancy import TenantPlane
+
+    t0 = time.perf_counter()
+    tg = build_tenant_columnar()
+    late_t = TENANTS - 1
+    plane = TenantPlane(tg.store, tg.manager, max_tenants=TENANTS + 1)
+    for nid in tg.nids[:late_t]:
+        plane.create(nid)
+    sizes = tg.size["n_docs"]
+    log(f"[15] tenant plane: {len(plane.tenant_ids())} networks ({late_t} "
+        f"tenants + the default), {tg.n_loaded} qualified tuples (Zipf s = 1: "
+        f"the largest tenant {int(sizes[0])} docs, the smallest {int(sizes[-1])}; "
+        f"the last tenant's {len(tg.late_rows)} tuples wait for its creation), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine = DeviceCheckEngine(tg.store, plane.manager, fused_dispatch=True,
+                               fused_retry_lanes=1,
+                               leopard={"max_pairs": LEO_MAX_PAIRS})
+    g = engine.device_tables()
+    ns_dim, rel_dim = g["f_direct_ok"].shape
+    state = engine.leopard_index()
+    if state is None or state.pairs is None:
+        raise AssertionError("the closure index was not built")
+    log(f"[15] engine: NS {ns_dim}, R {rel_dim}; projection "
+        f"{engine.projection_build_s:.2f} s, upload "
+        f"{engine.projection_upload_s:.2f} s, closure index "
+        f"{state.index.build_s:.2f} s ({len(state.index.elt_packed)} element "
+        f"pairs); {time.perf_counter() - t0:.1f} s in all")
+    for q in (*TENANT_SMALL_CHUNKS, Q):
+        log(f"[15] {key_bits(q, ns_dim, rel_dim)}")
+    oracle = engine.oracle
+    rng = np.random.default_rng(SEED_TENANT_TRAFFIC)
+    rec = Recorder()
+    traffic = {
+        "tenants-pure": tenant_queries(tg, 2 * Q, rng, granted=0.5),
+        "tenants-mixed": tenant_queries(tg, 2 * Q, rng, general_frac=GENERAL_FRAC,
+                                        subject_set_frac=0.15),
+    }
+    for n in TENANT_SMALL_CHUNKS:
+        traffic[f"tenants-{n}"] = tenant_queries(tg, n, rng, granted=0.5)
+    runs = {}
+    for name, queries in traffic.items():
+        t0 = time.perf_counter()
+        runs[name] = r = tenant_traffic(engine, rec, name, queries, oracle,
+                                        ns_dim, rel_dim)
+        small = len(queries) <= 2048
+        sort_n, scat_n = r.launches["pack_sort"], r.launches["pack_scatter"]
+        if small and (sort_n or not scat_n):
+            raise AssertionError(f"{name}: a chunk of {len(queries)} rows took the "
+                                 f"sort ({sort_n}) or no scatter ({scat_n})")
+        if not small and (scat_n or not sort_n):
+            raise AssertionError(f"{name}: 8,192-row chunks took the scatter "
+                                 f"({scat_n}) or no sort ({sort_n})")
+        if r.launches["lex_sort"] != sort_n:
+            raise AssertionError(f"{name}: {r.launches['lex_sort']} sorts for "
+                                 f"{sort_n} sort packs")
+        path = ("init_state", "probe_level", "arena_assign", "expand_children",
+                "wave_tier0", "wave_lane", "wave_pack")
+        path += ("pack_scatter",) if small else tuple(SORT_KERNELS)
+        if name == "tenants-mixed":
+            path += (*GEN_KERNELS, "wave_gen_lane")
+        require_launched(r.launches, path, name)
+        log(f"[15] {name}: held and checked in {time.perf_counter() - t0:.1f} s")
+
+    # -- tenant facades and isolation -----------------------------------------
+    t0 = time.perf_counter()
+    picks = (0, TENANTS // 64, TENANTS // 2)
+    for t in picks:
+        nid = tg.nids[t]
+        rows = tenant_queries(tg, TENANT_FACADE_ROWS, rng, granted=0.5,
+                              tenants=[t])
+        facade = plane.engine_for(nid, engine)
+        bare = [type(q)(q.namespace.split(NS_SEP, 1)[1], q.object, q.relation,
+                        q.subject) for q in rows]
+        got = facade.batch_check(bare)
+        if got != engine.batch_check(rows):
+            raise AssertionError(f"tenant {nid}: the facade != the shared engine")
+        for q, v in list(zip(rows, got))[:64]:
+            if v != oracle.check_is_member(q):
+                raise AssertionError(f"tenant {nid}: {q}: {v}")
+    grants = [q for q in traffic["tenants-pure"][:Q]
+              if isinstance(q.subject, SubjectID)][:4 * TENANT_ISOLATION]
+    own = engine.batch_check(grants)
+    granted = [q for q, v in zip(grants, own) if v][:TENANT_ISOLATION]
+    cross = []
+    for q in granted:
+        t = int(tg.owner["n_docs"][int(q.object[1:])])
+        other = (t + 1 + int(rng.integers(late_t - 1))) % late_t
+        cross.append(type(q)(f"{tg.nids[other]}{NS_SEP}Doc", q.object, q.relation,
+                             q.subject))
+    denied = engine.batch_check(cross)
+    if any(denied) or any(oracle.check_is_member(q) for q in cross[:64]):
+        raise AssertionError("a user was allowed on another tenant's doc")
+    log(f"[15] facades: {len(picks)} tenants x {TENANT_FACADE_ROWS} rows through "
+        f"TenantCheckEngine equal the shared engine's (64 each the oracle's); "
+        f"isolation: {len(granted)} granted (doc, user) pairs asked under another "
+        f"tenant's namespace all denied ({time.perf_counter() - t0:.1f} s)")
+
+    # -- a write through a tenant's view, then its next verdict ----------------
+    def outsider(t):
+        """(group, user) of tenant t: its first group, and one of its last
+        users that the group does not hold yet (or None)."""
+        g_i = int(tg.base["n_groups"][t])
+        hi = int(tg.base["n_users"][t] + tg.size["n_users"][t])
+        for u_i in range(hi - 1, max(hi - 64, int(tg.base["n_users"][t])) - 1, -1):
+            if not oracle.check_is_member(
+                    tenant_row(tg, t, "Group", f"g{g_i}", "members", u_i)):
+                return g_i, u_i
+        return None
+
+    t = next(t for t in range(TENANTS // 8, -1, -1) if outsider(t))
+    nid = tg.nids[t]
+    g_i, u_i = outsider(t)
+    q = tenant_row(tg, t, "Group", f"g{g_i}", "members", u_i)
+    before = engine.batch_check([q])[0]
+    view = plane.view_for(nid)
+    t0 = time.perf_counter()
+    view.write_relation_tuples(RelationTuple("Group", f"g{g_i}", "members",
+                                             SubjectID(f"u{u_i}")))
+    after = engine.batch_check([q])[0]
+    w_ms = (time.perf_counter() - t0) * 1e3
+    if before or not after or not oracle.check_is_member(q):
+        raise AssertionError(f"{q}: {before} -> {after} after the write")
+    log(f"[15] write through tenant {nid}'s view: {q} {before} -> {after}, write "
+        f"to next verdict {w_ms:.3f} ms (tier {engine.last_write.get('tier')}, "
+        f"closure {engine.last_write.get('leopard')})")
+
+    # -- a tenant created after the traffic ---------------------------------------
+    late = tg.nids[late_t]
+    r0 = engine.rebuilds
+    t0 = time.perf_counter()
+    plane.create(late)
+    plane.view_for(late).write_relation_tuples(*tg.late_rows)
+    rows = tenant_queries(tg, 512, rng, granted=0.0, tenants=[late_t])
+    got = engine.batch_check(rows)
+    c_s = time.perf_counter() - t0
+    if engine.rebuilds != r0 + 1:
+        raise AssertionError(f"creating {late}: {engine.rebuilds - r0} rebuilds")
+    for q, v in zip(rows, got):
+        if v != oracle.check_is_member(q):
+            raise AssertionError(f"late tenant {late}: {q}: {v}")
+    try:
+        plane.create("one-more")
+        raise AssertionError("the plane took a tenant past max_tenants")
+    except TooManyRequestsError:
+        pass
+    log(f"[15] tenant {late} created after the traffic with {len(tg.late_rows)} "
+        f"tuples: create + write + first batch {c_s:.3f} s (one rebuild: "
+        f"projection {engine.projection_build_s:.2f} s, upload "
+        f"{engine.projection_upload_s:.2f} s); its 512 rows ({sum(got)} allowed) "
+        f"equal the oracle's; NS still {engine.device_tables()['f_direct_ok'].shape[0]}; "
+        f"a {TENANTS + 2}th network is refused (max_tenants {TENANTS + 1})")
+
+    # -- timing ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    entries = []
+    pure = runs["tenants-pure"]
+    timed_rows = {name: time_kernels(g, rec, name, tuple(SORT_KERNELS),
+                                     sample=TENANT_TIMED_SAMPLE)
+                  for name in ("tenants-pure", "tenants-mixed")}
+    for name, (source, replaces) in SORT_KERNELS.items():
+        per, lb = timed_rows["tenants-pure"][name], pure.by_shape[name]
+        for ds, rows_ in timed_rows.items():
+            for s_, r in rows_[name].items():
+                log(f"[15] {name} at {shape_name(s_)} ({ds}): {r['ms']:.4f} "
+                    f"ms/launch on the card (host {r['host_ms']:.4f} ms per "
+                    f"eager call), plain {r['plain_ms']:.4f} ms, library "
+                    f"{r['library_ms']}, bound {r['bound_ms']:.6f} ms (bytes), "
+                    f"{runs[ds].by_shape[name].get(s_, 0)} launches in the timed "
+                    f"run, mean of {r['calls']} calls")
+        mper, mlb = timed_rows["tenants-mixed"][name], runs["tenants-mixed"].by_shape[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": pure.launches[name], "max_abs_err": rec.err[name],
+            "ms": weighted(per, lb, "ms"), "plain_ms": weighted(per, lb, "plain_ms"),
+            "bound_ms": weighted(per, lb, "bound_ms"), "bound_by": "bytes",
+            "library_ms": weighted(per, lb, "library_ms"),
+            "path": "tenants-pure",
+            "launches_by_shape": {shape_name(s_): c for s_, c in lb.items()},
+            "ms_by_shape": {shape_name(s_): per[s_]["ms"] for s_ in lb},
+            "plain_ms_by_shape": {shape_name(s_): per[s_]["plain_ms"] for s_ in lb},
+            "bound_ms_by_shape": {shape_name(s_): per[s_]["bound_ms"] for s_ in lb},
+            "mixed_path": {
+                "launches": runs["tenants-mixed"].launches[name],
+                "ms": weighted(mper, mlb, "ms"),
+                "bound_ms": weighted(mper, mlb, "bound_ms"),
+                "library_ms": weighted(mper, mlb, "library_ms"),
+            },
+        })
+    # pack_sort's share of a wave's device time (its time includes the
+    # lex_sort it runs), per wave of the timed pure-OR run
+    ms_pack = {s_: r["ms"] for s_, r in timed_rows["tenants-pure"]["pack_sort"].items()}
+    for plan, _o, _a, _f in pure.replay:
+        qd = torch.from_numpy(plan.qpack).to(g["row_ptr"].device)
+        key = wave_key(plan)
+        dev_ms, spread, _h = calls_ms(
+            lambda plan=plan, qd=qd: fdx.run_fused_wave(plan.tables, qd, **plan.kwargs))
+        n_pack = pure.by_shape["pack_sort"].get(key, 0) // pure.shapes[key]
+        share = n_pack * ms_pack[key] / dev_ms
+        log(f"[15] wave {shape_name(key)}: {dev_ms:.4f} ms on the card (spread "
+            f"{spread:.4f}); {n_pack} pack_sort launches x {ms_pack[key]:.4f} ms "
+            f"= a pack_sort share of {share:.4f}")
+        entries[0].setdefault("wave_share", []).append(
+            {"wave": shape_name(key), "wave_ms": dev_ms, "share": share})
+    log(f"[15] timing in {time.perf_counter() - t0:.1f} s")
+    for name in SORT_KERNELS:
+        log(f"[15] {name}: {len(rec.calls[name])} calls held, kernel == plain "
+            f"(max abs err {rec.err[name]})")
+    return SimpleNamespace(entries=entries, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3271,7 +3861,13 @@ def main() -> int:
             entry["mesh_path"] = mp.masked[entry["name"]]
     line.extend(mp.entries)
     log(f"[14] mesh phase in {time.perf_counter() - t0:.1f} s")
-    log(f"[14] total {time.perf_counter() - t_start:.1f} s")
+
+    # -- 15. the tenant plane: frontiers packed by sort (K5b) ---------------------
+    t0 = time.perf_counter()
+    tp = tenant_phase()
+    line.extend(tp.entries)
+    log(f"[15] tenant phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[15] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,15 @@
 // the verdict bytes.
 //
 // Replaces the JAX package's engine/fastpath.py:448 _pack_scatter,
-// :175 _init_state and the output packing of :702 _run_fused_packed (K5);
-// on the graph-sharded mesh (K10) the same pack reads the routed children
-// as the rows parallel/graphshard.py:159 _route receives (pack_scatter_rows)
-// and the roots activate on their assigned shard (init_state's assign);
-// the level loop of :657 _fused_body is the host loop in
+// :515 _pack_sort, :175 _init_state and the output packing of :702
+// _run_fused_packed (K5, K5b);
+// on the graph-sharded mesh (K10) the same packs read the routed children
+// as the rows parallel/graphshard.py:159 _route receives (the *_rows entry
+// points) and the roots activate on their assigned shard (init_state's
+// assign); the level loop of :657 _fused_body is the host loop in
 // fastpath.run_fast_packed, which enqueues every level on one stream.
-// Plain versions: fastpath._pack_scatter_plain, _init_state_plain,
-// _pack_verdicts_plain.
+// Plain versions: fastpath._pack_scatter_plain, _pack_sort_plain,
+// _init_state_plain, _pack_verdicts_plain.
 //
 // Bound: bytes.  _pack_scatter reads the seven child columns of the arena
 // (plus the owner's key and a q_found bit per child), keeps a 2A-slot
@@ -26,6 +27,21 @@
 // Grid-wide barriers: table fill -> owner scatter -> merge scatter ->
 // survivor scan (three launches, csrc/scan.cuh) -> emit.  Each is a launch
 // boundary.
+//
+// K5b, the sort-based pack (any key width: the (qid, ns, rel) key of the
+// scatter needs 31 bits or fewer), in three steps, the middle one the
+// radix sort of csrc/sort.cu through xutil.lex_sort:
+// pack_sort_keys writes the four sort keys (qid, ns, rel, obj; a dead
+// child sorts last as qid = Q) and the payload d << 2 | skip << 1 | force;
+// lex_sort sorts them; pack_sort flags each segment's first row (valid and
+// its key differs from the previous row's), ranks the first rows with the
+// scan, reduces each contiguous segment to max d, min skip and max force
+// (the first row's thread walks its segment: duplicates of one child are
+// few), writes the survivors below the frontier size in sorted order and
+// marks the query over for each first row past it.  Bound: bytes, the
+// child columns read once, the frontier and the over bits written once;
+// the keys, payload and flags between the steps are scratch of 4 * 10
+// bytes per child, in L2 at the served arena sizes.
 #include "scan.cuh"
 
 constexpr uint32_t kPackSalt = 0x9E3779B9u;
@@ -237,6 +253,127 @@ KT_EXPORT int pack_scatter_rows(const int32_t* rows, int32_t n_rows,
                         nq, nsb, relb, h_slots, own, d_tab, skip_tab,
                         force_tab, hslot, surv, pos, total, block_sums, out,
                         occ_slot, stream);
+}
+
+// -- K5b: the sort-based pack (fastpath._pack_sort) ---------------------------
+
+// The sort keys of every child, int32[4, n] (qid, ns, rel, obj: a dead
+// child -- qid < 0 or its query found -- is (nq, 0, 0, 0), after every live
+// one) and the payload d << 2 | skip << 1 | force.
+template <class Src>
+__global__ void pack_sort_keys_k(Src ch, const int32_t* __restrict__ q_found,
+                                 int32_t nq, int32_t* __restrict__ keys,
+                                 int32_t* __restrict__ pay) {
+    int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int32_t n = ch.n();
+    if (i >= n) return;
+    bool alive = child_alive(ch, i, q_found, nq);
+    keys[i] = alive ? ch.qid(i) : nq;
+    keys[n + i] = alive ? ch.ns(i) : 0;
+    keys[2 * (int64_t)n + i] = alive ? ch.rel(i) : 0;
+    keys[3 * (int64_t)n + i] = alive ? ch.obj(i) : 0;
+    pay[i] = (int32_t)(((uint32_t)ch.d(i) << 2) | ((uint32_t)ch.skip(i) << 1) |
+                       (uint32_t)ch.force(i));
+}
+
+KT_EXPORT int pack_sort_keys(Items ch, const int32_t* q_found, int32_t nq,
+                             int32_t* keys, int32_t* pay, cudaStream_t stream) {
+    const int threads = 256;
+    pack_sort_keys_k<<<kt_blocks(ch.n, threads), threads, 0, stream>>>(
+        ColSrc{ch}, q_found, nq, keys, pay);
+    return (int)cudaGetLastError();
+}
+
+KT_EXPORT int pack_sort_keys_rows(const int32_t* rows, int32_t n_rows,
+                                  const int32_t* q_found, int32_t nq,
+                                  int32_t* keys, int32_t* pay,
+                                  cudaStream_t stream) {
+    const int threads = 256;
+    pack_sort_keys_k<<<kt_blocks(n_rows, threads), threads, 0, stream>>>(
+        RowSrc{rows, n_rows}, q_found, nq, keys, pay);
+    return (int)cudaGetLastError();
+}
+
+// first[i]: row i of the sorted children is valid (a live child) and its
+// key differs from row i - 1's.
+__global__ void pack_sort_first(const int32_t* __restrict__ sq,
+                                const int32_t* __restrict__ sns,
+                                const int32_t* __restrict__ srel,
+                                const int32_t* __restrict__ sobj, int32_t a,
+                                int32_t nq, int32_t* __restrict__ first) {
+    int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a) return;
+    bool same = i > 0 && sq[i] == sq[i - 1] && sns[i] == sns[i - 1] &&
+                srel[i] == srel[i - 1] && sobj[i] == sobj[i - 1];
+    first[i] = (sq[i] < nq && !same) ? 1 : 0;
+}
+
+// Each segment's first row merges its segment (the rows after it that are
+// valid and not first) and lands at its rank, or marks its query over
+// past the frontier.  Thread 0 records the next level's occupancy.
+__global__ void pack_sort_emit(const int32_t* __restrict__ sq,
+                               const int32_t* __restrict__ sns,
+                               const int32_t* __restrict__ srel,
+                               const int32_t* __restrict__ sobj,
+                               const int32_t* __restrict__ spay, int32_t a,
+                               int32_t nq, const int32_t* __restrict__ first,
+                               const int32_t* __restrict__ pos,
+                               const int32_t* __restrict__ total,
+                               int32_t* __restrict__ q_over, Items out,
+                               int32_t* __restrict__ occ_slot) {
+    int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i == 0 && occ_slot != nullptr) {
+        int32_t t = *total;
+        *occ_slot = t < out.n ? t : out.n;
+    }
+    if (i >= a || !first[i]) return;
+    int32_t p = pos[i];
+    int32_t q = sq[i];
+    if (p >= out.n) {
+        atomicOr(&q_over[clampi(q, 0, nq - 1)], 1);
+        return;
+    }
+    int32_t pay = spay[i];
+    int32_t d = pay >> 2, skip = (pay >> 1) & 1, force = pay & 1;
+    for (int32_t j = i + 1; j < a && !first[j] && sq[j] < nq; ++j) {
+        int32_t pj = spay[j];
+        d = max(d, pj >> 2);
+        skip = min(skip, (pj >> 1) & 1);
+        force = max(force, pj & 1);
+    }
+    out.qid[p] = q;
+    out.ns[p] = sns[i];
+    out.obj[p] = sobj[i];
+    out.rel[p] = srel[i];
+    out.d[p] = d;
+    out.skip[p] = (uint8_t)skip;
+    out.force[p] = (uint8_t)force;
+}
+
+// sq, sns, srel, sobj, spay: the sorted keys and payload of a children
+// (lex_sort of pack_sort_keys' output).  Scratch (int32): first, pos [a];
+// total [1]; block_sums [ceil(a / 4096)].
+KT_EXPORT int pack_sort(const int32_t* sq, const int32_t* sns,
+                        const int32_t* srel, const int32_t* sobj,
+                        const int32_t* spay, int32_t a,
+                        const int32_t* q_over_in, int32_t* q_over_out,
+                        int32_t nq, int32_t* first, int32_t* pos,
+                        int32_t* total, int32_t* block_sums, Items out,
+                        int32_t* occ_slot, cudaStream_t stream) {
+    cudaMemcpyAsync(q_over_out, q_over_in, sizeof(int32_t) * nq,
+                    cudaMemcpyDeviceToDevice, stream);
+    const int threads = 256;
+    pack_fill<<<kt_blocks(out.n, threads), threads, 0, stream>>>(
+        0, nullptr, nullptr, nullptr, nullptr, out);
+    pack_sort_first<<<kt_blocks(a, threads), threads, 0, stream>>>(
+        sq, sns, srel, sobj, a, nq, first);
+    // -- grid-wide barrier: every first flag is written --
+    enqueue_scan(first, a, pos, total, block_sums, stream);
+    // -- grid-wide barrier: ranks and the survivor total are final --
+    pack_sort_emit<<<kt_blocks(a, threads), threads, 0, stream>>>(
+        sq, sns, srel, sobj, spay, a, nq, first, pos, total, q_over_out, out,
+        occ_slot);
+    return (int)cudaGetLastError();
 }
 
 // _init_state: roots in slots 0..nq-1 from the packed query block (rows

@@ -1029,13 +1029,6 @@ def _run_general(ops: _GenOps, g: Tables, qpack, sizes, fast_b: int, fast_sched,
     else:
         qp = torch.from_numpy(np.ascontiguousarray(qpack, np.int32)).to(dev)
     q = qp.shape[1]
-    ns_dim, rel_dim = g["f_direct_ok"].shape
-    nsb, relb = fp._pack_bits(ns_dim), fp._pack_bits(rel_dim)
-    if fp._pack_bits(fast_b) + nsb + relb > 31:
-        raise NotImplementedError(
-            f"sort-based pack for {fp._pack_bits(fast_b)}+{nsb}+{relb} key "
-            "bits is not ported"
-        )
     st = GenState.new(q, tuple(sizes), fast_b, len(fast_sched), vcap, dev)
     q_subj = qp[3]
     depth = len(sizes)

@@ -1,0 +1,368 @@
+"""Columnar batch checks: packed string/id columns from socket to device.
+
+A served batch otherwise builds one Python object chain per item —
+JSON dict -> RelationTuple -> scalar vocab lookups -> per-slot future ->
+response dict.  This module is the one carrier that replaces it:
+
+* :func:`decode_items` parses a batch body once into string columns with
+  EXACT per-item error parity with ``RelationTuple.from_json`` (bad items
+  become their slot's typed error, never the batch's);
+* :class:`ColumnBlock` holds the columns, bulk-encodes them to int32 id
+  columns against an engine vocabulary (one vectorized hashtab probe per
+  column, ``engine/vocab.py``), and materializes a real ``RelationTuple``
+  only for the items that still need one (oracle fallback, ledger);
+* :func:`verdict_fragments` / :func:`render_batch_body` scatter the
+  verdict bool array into a pre-templated JSON frame with two
+  ``bytes.join`` passes instead of per-item serialization.
+
+The JAX package's ``engine/columns.py`` (numpy only).  In the port the
+tenant plane (``tenancy/plane.py``) qualifies blocks and, while the
+engine has no ``batch_check_block``, answers them through
+:func:`block_check_via_tuples`."""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ketotpu_torch.api.types import (
+    DeadlineExceededError,
+    ErrIncompleteSubject,
+    ErrIncompleteTuple,
+    ErrNilSubject,
+    KetoAPIError,
+    RelationTuple,
+    SubjectID,
+    SubjectSet,
+)
+
+CHECK = "check"  # cache key discriminator (cache/results.py)
+
+SUBJ_ID = 0
+SUBJ_SET = 1
+
+
+class ColumnBlock:
+    """One batch of check queries as parallel columns.
+
+    String columns: ``ns``/``obj``/``rel`` plus the subject split into
+    ``skind`` (SUBJ_ID / SUBJ_SET) and parts ``sa``/``sb``/``sc``
+    (id,"","" for ids; set-ns,set-obj,set-rel for subject sets).  ``suid``
+    is the precomputed ``Subject.unique_id()`` column — together with
+    ns/obj/rel it is everything the vocabulary encode and the result-cache
+    key need, so the hot path never builds a Subject object.
+    """
+
+    __slots__ = ("ns", "obj", "rel", "skind", "sa", "sb", "sc", "suid",
+                 "_items", "_enc", "_miss", "_enc_vocab")
+
+    def __init__(self, ns, obj, rel, skind, sa, sb, sc, suid=None):
+        self.ns = ns
+        self.obj = obj
+        self.rel = rel
+        self.skind = skind
+        self.sa = sa
+        self.sb = sb
+        self.sc = sc
+        if suid is None:
+            suid = [
+                ("id:" + sa[i]) if skind[i] == SUBJ_ID
+                else f"set:{sa[i]}:{sb[i]}#{sc[i]}"
+                for i in range(len(ns))
+            ]
+        self.suid = suid
+        self._items: Optional[List[Optional[RelationTuple]]] = None
+        # vocab-encode cache: id columns + per-column miss indices, valid
+        # for the vocab object identity they were computed against
+        self._enc = None
+        self._miss = None
+        self._enc_vocab = None
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def from_tuples(cls, tuples: Sequence[RelationTuple]) -> "ColumnBlock":
+        ns, obj, rel = [], [], []
+        skind, sa, sb, sc, suid = [], [], [], [], []
+        items: List[Optional[RelationTuple]] = []
+        for t in tuples:
+            ns.append(t.namespace)
+            obj.append(t.object)
+            rel.append(t.relation)
+            s = t.subject
+            if isinstance(s, SubjectSet):
+                skind.append(SUBJ_SET)
+                sa.append(s.namespace)
+                sb.append(s.object)
+                sc.append(s.relation)
+            else:
+                skind.append(SUBJ_ID)
+                sa.append(s.id)
+                sb.append("")
+                sc.append("")
+            suid.append(s.unique_id())
+            items.append(t)
+        b = cls(ns, obj, rel, skind, sa, sb, sc, suid=suid)
+        b._items = items
+        return b
+
+    @staticmethod
+    def concat(blocks: Sequence["ColumnBlock"]) -> "ColumnBlock":
+        """One merged block; pre-materialized items and compatible encode
+        caches carry over (a batcher merges blocks with this)."""
+        if len(blocks) == 1:
+            return blocks[0]
+        out = ColumnBlock(
+            [s for b in blocks for s in b.ns],
+            [s for b in blocks for s in b.obj],
+            [s for b in blocks for s in b.rel],
+            [k for b in blocks for k in b.skind],
+            [s for b in blocks for s in b.sa],
+            [s for b in blocks for s in b.sb],
+            [s for b in blocks for s in b.sc],
+            suid=[s for b in blocks for s in b.suid],
+        )
+        if any(b._items is not None for b in blocks):
+            out._items = [
+                it
+                for b in blocks
+                for it in (b._items if b._items is not None
+                           else [None] * len(b))
+            ]
+        vocabs = {id(b._enc_vocab) for b in blocks}
+        if len(vocabs) == 1 and blocks[0]._enc_vocab is not None:
+            out._enc = [
+                np.concatenate([b._enc[k] for b in blocks]) for k in range(4)
+            ]
+            out._miss = [np.flatnonzero(e < 0) for e in out._enc]
+            out._enc_vocab = blocks[0]._enc_vocab
+        return out
+
+    def slice(self, lo: int, hi: int) -> "ColumnBlock":
+        b = ColumnBlock(
+            self.ns[lo:hi], self.obj[lo:hi], self.rel[lo:hi],
+            self.skind[lo:hi], self.sa[lo:hi], self.sb[lo:hi],
+            self.sc[lo:hi], suid=self.suid[lo:hi],
+        )
+        if self._items is not None:
+            b._items = self._items[lo:hi]
+        if self._enc is not None:
+            # numpy slices are views: the chunk's miss refreshes write
+            # through to the parent encode, which is exactly right (ids
+            # are append-only, a later resolve is valid for both)
+            b._enc = [e[lo:hi] for e in self._enc]
+            b._miss = [np.flatnonzero(e < 0) for e in b._enc]
+            b._enc_vocab = self._enc_vocab
+        return b
+
+    def take(self, idx: Sequence[int]) -> "ColumnBlock":
+        """Row subset by index list (handler-side namespace exclusion)."""
+        b = ColumnBlock(
+            [self.ns[i] for i in idx], [self.obj[i] for i in idx],
+            [self.rel[i] for i in idx], [self.skind[i] for i in idx],
+            [self.sa[i] for i in idx], [self.sb[i] for i in idx],
+            [self.sc[i] for i in idx],
+            suid=[self.suid[i] for i in idx],
+        )
+        if self._items is not None:
+            b._items = [self._items[i] for i in idx]
+        if self._enc is not None:
+            ai = np.asarray(idx, np.int64)
+            b._enc = [e[ai] for e in self._enc]
+            b._miss = [np.flatnonzero(e < 0) for e in b._enc]
+            b._enc_vocab = self._enc_vocab
+        return b
+
+    # -- item views ----------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.ns)
+
+    def subject(self, i: int):
+        if self.skind[i] == SUBJ_ID:
+            return SubjectID(id=self.sa[i])
+        return SubjectSet(
+            namespace=self.sa[i], object=self.sb[i], relation=self.sc[i]
+        )
+
+    def __getitem__(self, i: int) -> RelationTuple:
+        """Materialize (and cache) item i — oracle fallback / scalar
+        re-checks only; the hot path never calls this."""
+        if self._items is None:
+            self._items = [None] * len(self.ns)
+        t = self._items[i]
+        if t is None:
+            t = RelationTuple(
+                namespace=self.ns[i], object=self.obj[i],
+                relation=self.rel[i], subject=self.subject(i),
+            )
+            self._items[i] = t
+        return t
+
+    def subject_str(self, i: int) -> str:
+        """Canonical ``str(subject)`` without building the subject."""
+        if self.skind[i] == SUBJ_ID:
+            return self.sa[i]
+        if self.sc[i] == "":
+            return f"{self.sa[i]}:{self.sb[i]}"
+        return f"{self.sa[i]}:{self.sb[i]}#{self.sc[i]}"
+
+    def tuple_str(self, i: int) -> str:
+        """Canonical ``str(RelationTuple)`` — the worker mirror / flight
+        keys use this; must match ``api/types.py`` byte for byte."""
+        return (f"{self.ns[i]}:{self.obj[i]}#{self.rel[i]}"
+                f"@{self.subject_str(i)}")
+
+    def cache_key(self, i: int, depth: int):
+        """The exact result-cache key ``cache_check_key(self[i], depth)``
+        would produce, from columns alone (cache/results.py)."""
+        return (CHECK, self.ns[i], self.obj[i], self.rel[i],
+                self.suid[i], int(depth))
+
+    # -- vocabulary encode ---------------------------------------------------
+
+    def encode_for(self, vocab) -> Tuple[np.ndarray, ...]:
+        """(q_ns, q_obj, q_rel, q_subj) int32 id columns against ``vocab``.
+
+        First call per vocab bulk-encodes all four columns (vectorized
+        probe + dict fallback, ``Vocab.encode_columns``).  Repeat calls
+        with the SAME vocab refresh only the recorded misses through the
+        scalar dict — interners are append-only, so every id already
+        resolved is still exact, while a string interned since (a write
+        landing between pre-encode and dispatch) must resolve now for
+        write visibility.  A different vocab (checkpoint swap / rebuild)
+        re-encodes in full."""
+        if self._enc is not None and self._enc_vocab is vocab:
+            inters = (vocab.namespaces, vocab.objects,
+                      vocab.relations, vocab.subjects)
+            cols = (self.ns, self.obj, self.rel, self.suid)
+            for k in range(4):
+                mi = self._miss[k]
+                if len(mi) == 0:
+                    continue
+                col, look = cols[k], inters[k].lookup
+                enc_k = self._enc[k]
+                still = []
+                for i in mi:
+                    v = look(col[i])
+                    if v < 0:
+                        still.append(i)
+                    else:
+                        enc_k[i] = v
+                self._miss[k] = np.asarray(still, dtype=np.int64)
+            return tuple(self._enc)
+        enc = list(vocab.encode_columns(self.ns, self.obj, self.rel,
+                                        self.suid))
+        self._enc = enc
+        self._miss = [np.flatnonzero(e < 0) for e in enc]
+        self._enc_vocab = vocab
+        return tuple(enc)
+
+
+def decode_items(raw: Sequence) -> Tuple[ColumnBlock, Dict[int, KetoAPIError],
+                                         List[int]]:
+    """Parse a batch body's ``tuples`` list straight into columns.
+
+    Returns ``(block, errors, keep)``: the block holds only the valid
+    rows, ``keep[j]`` is the original index of block row j, and
+    ``errors`` maps failed original indices to the same typed error the
+    scalar path's ``RelationTuple.from_json(d or {})`` raises — byte-
+    for-byte message parity, and non-mapping truthy entries raise
+    AttributeError out of the whole request exactly like the scalar
+    route (bug-compatible by design)."""
+    ns, obj, rel = [], [], []
+    skind, sa, sb, sc = [], [], [], []
+    keep: List[int] = []
+    errs: Dict[int, KetoAPIError] = {}
+    for i, d in enumerate(raw):
+        d = d or {}
+        try:
+            sid = d.get("subject_id")
+            if sid is not None:
+                kind, a, b, c = SUBJ_ID, sid, "", ""
+            else:
+                ss = d.get("subject_set")
+                if ss is None:
+                    raise ErrNilSubject()
+                try:
+                    a, b, c = (ss["namespace"], ss["object"],
+                               ss.get("relation", ""))
+                except (KeyError, TypeError) as e:
+                    raise ErrIncompleteSubject() from e
+                kind = SUBJ_SET
+            try:
+                t_ns, t_obj, t_rel = d["namespace"], d["object"], d["relation"]
+            except KeyError as e:
+                raise ErrIncompleteTuple() from e
+        except KetoAPIError as e:
+            errs[i] = e
+            continue
+        keep.append(i)
+        ns.append(t_ns)
+        obj.append(t_obj)
+        rel.append(t_rel)
+        skind.append(kind)
+        sa.append(a)
+        sb.append(b)
+        sc.append(c)
+    return ColumnBlock(ns, obj, rel, skind, sa, sb, sc), errs, keep
+
+
+def block_check_via_tuples(engine, block: ColumnBlock, rest_depth: int):
+    """Serve a block on an engine that only speaks item lists — the
+    compatibility shim for wrapped engines without ``batch_check_block``
+    (fakes in tests, the CPU oracle).  Same per-item error contract:
+    ``(verdicts bool array, {row: KetoAPIError})``."""
+    n = len(block)
+    queries = [block[i] for i in range(n)]
+    errs: Dict[int, KetoAPIError] = {}
+    out = np.zeros(n, bool)
+    try:
+        verdicts = engine.batch_check(queries, rest_depth)
+        out[:] = np.asarray(list(verdicts), bool)
+        return out, errs
+    except DeadlineExceededError:
+        raise  # batch-wide by design: the caller owns the 504 fan-out
+    except KetoAPIError:
+        for i, q in enumerate(queries):
+            try:
+                out[i] = bool(engine.batch_check([q], rest_depth)[0])
+            except DeadlineExceededError:
+                raise
+            except KetoAPIError as e:
+                errs[i] = e
+        return out, errs
+
+
+# -- response assembly --------------------------------------------------------
+
+_FRAG = np.empty(2, object)
+_FRAG[0] = b'{"allowed":false}'
+_FRAG[1] = b'{"allowed":true}'
+
+
+def verdict_fragments(verdicts) -> List[bytes]:
+    """Pre-templated per-item JSON fragments from a verdict bool array —
+    one vectorized gather, no per-item serialization."""
+    v = np.asarray(verdicts, bool).astype(np.int8)
+    return _FRAG[v].tolist()
+
+
+def error_fragment(message: str, status: int) -> bytes:
+    return json.dumps(
+        {"error": str(message), "status": int(status)},
+        separators=(",", ":"),
+    ).encode("utf-8")
+
+
+def render_batch_body(fragments: Sequence[bytes], snaptoken: str) -> bytes:
+    """The whole response frame in two ``bytes.join`` passes."""
+    return b"".join((
+        b'{"results":[',
+        b",".join(fragments),
+        b'],"snaptoken":',
+        json.dumps(snaptoken).encode("utf-8"),
+        b"}",
+    ))

@@ -47,7 +47,6 @@ A CUDA error propagates: there is no fallback from the card to the host.
 
 from __future__ import annotations
 
-import hashlib
 import threading
 import time
 from collections import Counter
@@ -80,7 +79,7 @@ from ketotpu_torch.engine.snapshot import EXPAND_ONLY_KEYS, Snapshot
 from ketotpu_torch.engine.vocab import Vocab
 from ketotpu_torch.leopard import closure as leo
 from ketotpu_torch.leopard import device as leodev
-from ketotpu_torch.storage.namespaces import NamespaceManager
+from ketotpu_torch.storage.namespaces import NamespaceManager, namespaces_fingerprint
 
 #: the write path's limits, at the JAX engine's defaults: the overlay's
 #: net pairs and dirty nodes (past either a write folds or rebuilds), and
@@ -184,15 +183,16 @@ def upload(arrays: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tens
 
 
 def config_fingerprint(manager: Optional[NamespaceManager]) -> int:
-    """Namespace-config identity: the AST reprs pin the content, so a
-    reloaded config re-projects even when the tuple store did not move."""
+    """Namespace-config identity (``namespaces_fingerprint``), read before
+    every batch.  A manager that keeps its own (the tenant plane's, whose
+    thousands of qualified namespaces change only with the catalog)
+    answers from it."""
     if manager is None:
         return 0
-    digest = hashlib.sha256()
-    for ns in manager.namespaces():
-        digest.update(repr(ns).encode())
-        digest.update(b"\x00")
-    return int.from_bytes(digest.digest()[:8], "big", signed=True)
+    own = getattr(manager, "config_fingerprint", None)
+    if own is not None:
+        return own()
+    return namespaces_fingerprint(manager.namespaces())
 
 
 class DeviceCheckEngine:

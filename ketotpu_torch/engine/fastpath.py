@@ -25,8 +25,11 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises):
 * :func:`xutil.arena_assign` (``csrc/arena.cu``) — arena allocation;
 * :func:`expand_children` (``csrc/children.cu``) — one child per arena slot;
 * :func:`_pack_scatter` (``csrc/pack.cu``) — dedup + compaction into the
-  next frontier; :func:`init_state` and :func:`pack_verdicts` (also
-  ``pack.cu``) — the packed query block in, the verdict bytes out.
+  next frontier when the (query, namespace, relation) key packs into 31
+  bits, else :func:`_pack_sort` (``csrc/pack.cu`` around the radix sort of
+  ``csrc/sort.cu``, :func:`xutil.lex_sort`); :func:`init_state` and
+  :func:`pack_verdicts` (also ``pack.cu``) — the packed query block in,
+  the verdict bytes out.
 
 :func:`run_fast_packed` enqueues every level of a batch on the current
 stream with no host sync; the caller fetches verdicts and occupancy with
@@ -56,7 +59,12 @@ import torch
 from ketotpu_torch import kernels
 from ketotpu_torch.engine import hashtab
 from ketotpu_torch.engine.delta import OV_ADDED, OV_DELETED
-from ketotpu_torch.engine.xutil import _arena_assign_plain, arena_assign
+from ketotpu_torch.engine.xutil import (
+    _arena_assign_plain,
+    _lex_sort_plain,
+    arena_assign,
+    lex_sort,
+)
 
 Tensor = torch.Tensor
 Tables = Dict[str, Tensor]
@@ -527,18 +535,19 @@ def pack_phase(children: Items, q_found: Tensor, q_over: Tensor, *,
     """Dedup by (query, node) — max depth, min skip, max force — and compact
     the survivors into the next frontier.  Returns (frontier, q_over').
 
-    Only the linear hash-scatter form is ported: it needs (qid, ns, rel) to
-    pack into 31 bits, which holds for every batch of up to 2^(31 - ns bits
-    - rel bits) queries (2^21 at the synth graph's NS=4, R=16)."""
-    qb = _pack_bits(q_found.shape[0])
-    nsb = _pack_bits(ns_dim)
-    relb = _pack_bits(rel_dim)
-    if qb + nsb + relb > 31:
-        raise NotImplementedError(
-            f"sort-based pack for {qb}+{nsb}+{relb} key bits is not ported"
-        )
-    return _pack_scatter(children, q_found, q_over, frontier=frontier,
-                         nsb=nsb, relb=relb, occ_out=occ_out)
+    The linear hash-scatter form when (qid, ns, rel) packs into 31 bits
+    (the bits of Q plus those of the padded namespace and relation dims),
+    else the sort-based form, as the JAX ``pack_phase`` dispatches."""
+    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
+    pack = _pack_op(_OPS, q_found.shape[0], nsb, relb)
+    return pack(children, q_found, q_over, frontier=frontier, nsb=nsb,
+                relb=relb, occ_out=occ_out)
+
+
+def _pack_op(ops: "_Ops", q: int, nsb: int, relb: int):
+    """The pack a level of a ``q``-query batch takes: the scatter when
+    (qid, ns, rel) packs into 31 bits, else the sort."""
+    return ops.pack_scatter if _pack_bits(q) + nsb + relb <= 31 else ops.pack_sort
 
 
 def rows_items(rows: Tensor) -> Items:
@@ -651,6 +660,129 @@ def _pack_scatter_plain(children, q_found, q_over, *, frontier: int,
         d=scat(0, d_out),
         skip=scat(False, skip_out),
         force=scat(False, force_out),
+    )
+    if occ_out is not None:
+        occ_out.copy_((out.qid >= 0).sum(dtype=torch.int32).reshape(1))
+    return out, q_over
+
+
+def _sort_bits(nq: int, nsb: int, relb: int) -> Tuple[int, int, int, int]:
+    """The widths of the sort keys (qid, ns, rel, obj): qid runs to Q (a
+    dead child), live namespaces and relations lie below their padded dims
+    (as the scatter's key packing assumes), and obj is sorted whole."""
+    return (max(int(nq).bit_length(), 1), nsb, relb, 32)
+
+
+def _pack_sort(children, q_found: Tensor, q_over: Tensor, *, frontier: int,
+               nsb: int, relb: int, occ_out: Optional[Tensor] = None):
+    """Sort-based dedup and compaction (the JAX ``_pack_sort``; any key
+    width): the children sorted by (qid, ns, rel, obj), a dead child as
+    qid = Q so it sorts after every live one; each run of equal keys
+    merges into its first row (max d, min skip, max force); the merged
+    rows compact in sorted order, and those past ``frontier`` mark their
+    query over.  Takes and returns what :func:`_pack_scatter` does; the
+    frontier comes out in key order, not the scatter's prefix order.  On
+    CUDA tensors: ``pack_sort_keys``, :func:`xutil.lex_sort` and
+    ``pack_sort`` (``csrc/pack.cu``, ``csrc/sort.cu``)."""
+    rows = children if isinstance(children, Tensor) else None
+    if (children.device if rows is not None else children.qid.device).type == "cpu":
+        return _pack_sort_plain(children, q_found, q_over, frontier=frontier,
+                                nsb=nsb, relb=relb, occ_out=occ_out)
+    dev = q_found.device
+    a = children.shape[0] if rows is not None else children.qid.shape[0]
+    nq = q_found.shape[0]
+    kernels.require(q_found, torch.int32, "q_found", device=dev)
+    kernels.require(q_over, torch.int32, "q_over", shape=(nq,), device=dev)
+    if rows is not None:
+        kernels.require(rows, torch.int32, "rows", shape=(a, 7), device=dev)
+    if occ_out is not None:
+        kernels.require(occ_out, torch.int32, "occ_out", shape=(1,), device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys = torch.empty((4, a), **i32)
+    pay = torch.empty(a, **i32)
+    src = ((kernels.ptr(rows), a) if rows is not None
+           else (kernels.items(children),))
+    kernels.launch("pack", "pack_sort_keys_rows" if rows is not None
+                   else "pack_sort_keys", *src, kernels.ptr(q_found), nq,
+                   kernels.ptr(keys), kernels.ptr(pay), kernels.stream())
+    sk, (spay,) = lex_sort(keys, pay, bits=_sort_bits(nq, nsb, relb))
+    scratch = torch.empty((2, a), **i32)  # first flags, their ranks
+    total = torch.empty(1, **i32)
+    block_sums = torch.empty(-(-max(a, 1) // _SCAN_TILE), **i32)
+    out = Items.empty(frontier, dev)
+    q_over_out = torch.empty(nq, **i32)
+    kernels.launch(
+        "pack", "pack_sort", *(kernels.ptr(c) for c in sk), kernels.ptr(spay),
+        a, kernels.ptr(q_over), kernels.ptr(q_over_out), nq,
+        kernels.ptr(scratch[0]), kernels.ptr(scratch[1]), kernels.ptr(total),
+        kernels.ptr(block_sums), kernels.items(out), kernels.ptr(occ_out),
+        kernels.stream(),
+    )
+    kernels.LAUNCHES["pack_sort"] += 1
+    return out, q_over_out
+
+
+def _sort_keys_plain(children, q_found: Tensor):
+    """The sort keys (int32[4, A]: qid, ns, rel, obj; a dead child is (Q,
+    0, 0, 0)) and the payload (d << 2 | skip << 1 | force) of
+    :func:`_pack_sort`, in plain PyTorch."""
+    if isinstance(children, Tensor):
+        children = rows_items(children)
+    nq = q_found.shape[0]
+    qid = children.qid
+    alive = (qid >= 0) & (q_found[qid.clamp(0, nq - 1).to(torch.int64)] == 0)
+    zero = torch.zeros_like(qid)
+    keys = torch.stack([torch.where(alive, qid, nq),
+                        torch.where(alive, children.ns, zero),
+                        torch.where(alive, children.rel, zero),
+                        torch.where(alive, children.obj, zero)])
+    pay = ((children.d << 2) | (children.skip.to(torch.int32) << 1)
+           | children.force.to(torch.int32))
+    return keys, pay
+
+
+def _pack_sort_plain(children, q_found, q_over, *, frontier: int, nsb: int,
+                     relb: int, occ_out: Optional[Tensor] = None):
+    F = frontier
+    Q = q_found.shape[0]
+    keys, pay = _sort_keys_plain(children, q_found)
+    dev = keys.device
+    A = keys.shape[1]
+    (sq, sns, srel, sobj), (spay,) = _lex_sort_plain(keys, pay)
+    valid = sq < Q
+    same = torch.ones(A, dtype=torch.bool, device=dev)
+    for c in (sq, sns, srel, sobj):
+        same &= c == torch.roll(c, 1)
+    same[:1] = False
+    first = valid & ~same
+    seg = (torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1)
+    seg = seg.clamp(0, max(A - 1, 0)).to(torch.int64)
+
+    def segment(fill, val, how):
+        t = torch.full((A,), fill, dtype=torch.int32, device=dev)
+        return t.scatter_reduce(0, seg, torch.where(valid, val, fill), how)[seg]
+
+    d_max = segment(-1, spay >> 2, "amax")
+    skip_min = segment(1, (spay >> 1) & 1, "amin")
+    force_max = segment(0, spay & 1, "amax")
+
+    pos = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.where(first, pos, F)
+    q_over = _scatter_or(q_over, sq.clamp(0, Q - 1), first & (pos >= F))
+    spos = torch.where(pos < F, pos, F).to(torch.int64)
+
+    def scat(fill, val):
+        x = torch.full((F + 1,), fill, dtype=val.dtype, device=dev)
+        return x.scatter(0, spos, val)[:F]
+
+    out = Items(
+        qid=scat(-1, torch.where(first, sq, -1)),
+        ns=scat(-1, sns),
+        obj=scat(-1, sobj),
+        rel=scat(-1, srel),
+        d=scat(0, d_max),
+        skip=scat(False, skip_min != 0),
+        force=scat(False, force_max != 0),
     )
     if occ_out is not None:
         occ_out.copy_((out.qid >= 0).sum(dtype=torch.int32).reshape(1))
@@ -789,12 +921,14 @@ class _Ops(NamedTuple):
     expand_children: object
     pack_scatter: object
     pack_verdicts: object
+    pack_sort: object
 
 
 _OPS = _Ops(init_state, probe_level, arena_assign, expand_children,
-            _pack_scatter, pack_verdicts)
+            _pack_scatter, pack_verdicts, _pack_sort)
 _PLAIN_OPS = _Ops(_init_state_plain, _probe_level_plain, _arena_assign_plain,
-                  _expand_children_plain, _pack_scatter_plain, _pack_verdicts_plain)
+                  _expand_children_plain, _pack_scatter_plain, _pack_verdicts_plain,
+                  _pack_sort_plain)
 
 
 def _run_levels(ops: _Ops, g: Tables, qpack, frontier: int, arena: int,
@@ -827,14 +961,6 @@ def _fast_pass(ops: _Ops, g: Tables, qp: Tensor, act: Tensor, sched, *,
     roots, then every level, enqueued with no host sync.  ``occ``
     (int32[len(sched)]) receives the live items entering each level.
     Returns (q_found, q_over, q_dirty), int32[Q]."""
-    ns_dim, rel_dim, _, _ = _dims(g)
-    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
-    q = qp.shape[1]
-    if _pack_bits(q) + nsb + relb > 31:
-        raise NotImplementedError(
-            f"sort-based pack for {_pack_bits(q)}+{nsb}+{relb} key bits is "
-            "not ported"
-        )
     f, q_found, q_over, q_subj = ops.init_state(
         qp, frontier=sched[0][0], levels=len(sched), occ_out=occ[0:1], act=act
     )
@@ -851,6 +977,7 @@ def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
     caller writes ``occ[0]``).  Returns (q_found, q_over, q_dirty)."""
     ns_dim, rel_dim, _, _ = _dims(g)
     nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
+    pack = _pack_op(ops, q_found.shape[0], nsb, relb)
     levels = len(sched)
     for i, (_f, a) in enumerate(sched):
         last = i == levels - 1
@@ -863,7 +990,7 @@ def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
             g, f, lv, offsets, parent, ordinal, q_found, q_over,
             max_width=max_width,
         )
-        f, q_over = ops.pack_scatter(
+        f, q_over = pack(
             children, q_found, q_over, frontier=sched[i + 1][0], nsb=nsb,
             relb=relb, occ_out=occ[i + 1: i + 2],
         )

@@ -193,23 +193,20 @@ def _compute_taint(
         src.append(sns * num_rel + srel)
         dst.append(ens * num_rel + erel)
         ns_targets.setdefault((sns, srel), set()).add(ens)
-    kc, kt = flat.css_rel.shape[2], flat.ttu_via.shape[2]
-    for ns_id in range(num_ns):
-        for rel_id in range(num_rel):
-            base = ns_id * num_rel + rel_id
-            for k in range(kc):
-                r = int(flat.css_rel[ns_id, rel_id, k])
-                if r >= 0:
-                    src.append(base)
-                    dst.append(ns_id * num_rel + r)
-            for k in range(kt):
-                v = int(flat.ttu_via[ns_id, rel_id, k])
-                if v < 0:
-                    continue
-                tgt = int(flat.ttu_tgt[ns_id, rel_id, k])
-                for ens in ns_targets.get((ns_id, v), ()):
-                    src.append(base)
-                    dst.append(ens * num_rel + tgt)
+    # the CSS and TTU entries of the tables, found vectorized (a Python
+    # walk over every (namespace, relation) pair costs seconds once
+    # thousands of tenants pad the namespace dim); edge order does not
+    # change the fixpoint below
+    css = flat.css_rel[:num_ns, :num_rel]
+    ns_i, rel_i, k_i = np.nonzero(css >= 0)
+    src.extend((ns_i * num_rel + rel_i).tolist())
+    dst.extend((ns_i * num_rel + css[ns_i, rel_i, k_i]).tolist())
+    via = flat.ttu_via[:num_ns, :num_rel]
+    for ns_id, rel_id, k in zip(*(a.tolist() for a in np.nonzero(via >= 0))):
+        tgt = int(flat.ttu_tgt[ns_id, rel_id, k])
+        for ens in ns_targets.get((ns_id, int(via[ns_id, rel_id, k])), ()):
+            src.append(ns_id * num_rel + rel_id)
+            dst.append(ens * num_rel + tgt)
     taint = (flat.impure | op.rel_err).ravel().copy()
     # err-only closure (subset of taint): gates the algebra path's IS
     # short-circuit — a subtree that cannot raise may be pruned on a

@@ -1,15 +1,19 @@
-"""Arena allocation: per-task child counts -> flat child slots (K4).
+"""Arena allocation (K4) and the lexicographic sort of key columns.
 
-The batched replacement for goroutine fan-out in the reference
+:func:`arena_assign` turns per-task child counts into flat child slots:
+the batched replacement for goroutine fan-out in the reference
 (`internal/check/checkgroup/concurrent_checkgroup.go:66-138`), as in the
-JAX package's ``engine/xutil.py``.  :func:`arena_assign` launches the
-CUDA kernel of ``csrc/arena.cu`` on a CUDA tensor and runs its plain
-PyTorch version on a CPU tensor.
+JAX package's ``engine/xutil.py``.  :func:`lex_sort` sorts int32 key
+columns lexicographically with payload columns carried along; the
+sort-based frontier pack (``fastpath._pack_sort``) calls it.  Each
+launches its CUDA kernel (``csrc/arena.cu``, ``csrc/sort.cu``) on CUDA
+tensors and runs its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -71,3 +75,80 @@ def _arena_assign_cuda(counts: Tensor, arena_size: int):
     )
     kernels.LAUNCHES["arena_assign"] += 1
     return offsets, total[0], parent, ordinal
+
+
+# -- the lexicographic sort ------------------------------------------------------
+
+_SORT_TILE = 1024  # csrc/sort.cuh kSortTile: rows per tile of a digit pass
+_SCAN_TILE = 4096  # csrc/scan.cuh kScanTile
+MAX_SORT_KEYS = 8  # csrc/sort.cuh kSortMaxKeys
+
+
+def lex_sort(keys, *payload: Tensor, bits: Optional[Sequence[int]] = None):
+    """Sort int32 key columns lexicographically (``keys[0]`` most
+    significant), carrying the payload columns along: the JAX
+    ``lex_sort`` (``jax.lax.sort(keys + payload, num_keys=K)``).
+
+    ``keys``: a sequence of K int32[N] tensors or one int32[K, N] tensor.
+    ``bits``: per key, its width; a width below 32 promises
+    ``0 <= key < 2**width``, so the kernel passes over only the low
+    ``ceil(width / 8)`` bytes (default 32 each: any int32, negatives
+    first).  Returns ``(sorted keys, sorted payload)``, tuples of [N]
+    tensors.  The sort is stable (equal keys keep their row order); JAX's
+    is not, so only the order among equal keys may differ from it."""
+    block = keys if isinstance(keys, Tensor) and keys.dim() == 2 else None
+    keys = tuple(keys)
+    if not keys:
+        raise ValueError("lex_sort needs at least one key column")
+    if keys[0].device.type == "cpu":
+        return _lex_sort_plain(keys, *payload, bits=bits)
+    return _lex_sort_cuda(keys, payload, bits, block)
+
+
+def _lex_sort_plain(keys, *payload: Tensor, bits: Optional[Sequence[int]] = None):
+    """A chain of stable sorts, least significant key first.  ``bits`` is
+    the kernel's promise about the keys and is not read here."""
+    keys = tuple(keys)
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return tuple(k[perm] for k in keys), tuple(p[perm] for p in payload)
+
+
+def _lex_sort_cuda(keys: Tuple[Tensor, ...], payload: Tuple[Tensor, ...], bits,
+                   block: Optional[Tensor]):
+    dev = keys[0].device
+    n = keys[0].shape[0]
+    nk, npay = len(keys), len(payload)
+    if nk > MAX_SORT_KEYS:
+        raise ValueError(f"{nk} key columns: the kernel takes at most {MAX_SORT_KEYS}")
+    widths = [32] * nk if bits is None else [int(b) for b in bits]
+    if len(widths) != nk or any(not 0 <= b <= 32 for b in widths):
+        raise ValueError(f"bits {widths}: one width in [0, 32] per key")
+    for i, c in enumerate(keys + payload):
+        kernels.require(c, torch.int32, f"column {i}", shape=(n,), device=dev)
+    # one int32[K, N] block: the caller's, when it passed one
+    kb = (block.contiguous() if block is not None
+          else keys[0].view(1, n) if nk == 1 else torch.stack(keys))
+    pb = (None if npay == 0 else payload[0].view(1, n) if npay == 1
+          else torch.stack(payload))
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys_out = torch.empty((nk, n), **i32)
+    pay_out = torch.empty((npay, n), **i32)
+    if n == 0:
+        return tuple(keys_out), tuple(pay_out)
+    n_counts = 256 * -(-n // _SORT_TILE)
+    perms = torch.empty((2, n), **i32)
+    counts = torch.empty(n_counts, **i32)
+    total = torch.empty(1, **i32)
+    block_sums = torch.empty(-(-n_counts // _SCAN_TILE), **i32)
+    width_arr = (ctypes.c_int32 * nk)(*widths)
+    kernels.launch(
+        "sort", "lex_sort", kernels.ptr(kb), nk,
+        ctypes.cast(width_arr, ctypes.c_void_p).value, kernels.ptr(pb), npay, n,
+        kernels.ptr(keys_out), kernels.ptr(pay_out) if npay else None,
+        kernels.ptr(perms[0]), kernels.ptr(perms[1]), kernels.ptr(counts),
+        kernels.ptr(total), kernels.ptr(block_sums), kernels.stream(),
+    )
+    kernels.LAUNCHES["lex_sort"] += 1
+    return tuple(keys_out), tuple(pay_out)

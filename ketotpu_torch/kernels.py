@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources are
-``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand,shard}.cu``
-(plus the shared headers ``common.cuh``, ``scan.cuh`` and ``leopard.cuh``).
+``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand,shard,sort}.cu``
+(plus the shared headers ``common.cuh``, ``scan.cuh``, ``leopard.cuh`` and
+``sort.cuh``).
 Each ``.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface, under
 ``build/ketotpu_torch/`` at the root of the checkout, named by a digest of
@@ -34,8 +35,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave",
-           "expand", "shard")
-HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh")
+           "expand", "shard", "sort")
+HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh", "sort.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -47,6 +48,8 @@ LAUNCHES: Dict[str, int] = {
     "arena_assign": 0,
     "expand_children": 0,
     "pack_scatter": 0,
+    "pack_sort": 0,
+    "lex_sort": 0,
     "init_state": 0,
     "pack_verdicts": 0,
     "gen_classify": 0,
@@ -222,6 +225,10 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, Items, _P, _P],
         "pack_scatter_rows": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, Items, _P, _P],
+        "pack_sort_keys": [Items, _P, _I, _P, _P, _P],
+        "pack_sort_keys_rows": [_P, _I, _P, _I, _P, _P, _P],
+        "pack_sort": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                      Items, _P, _P],
         "init_state": [_P, _P, _P, _I, _I, _I, Items, _P, _P, _P, _P],
         "pack_verdicts": [_P, _P, _P, _I, _P, _P],
     },
@@ -257,6 +264,9 @@ _SIGNATURES = {
         "shard_merge_classified": [_P, _P, _P, _I, _I, MergeState, _P, _I, _I,
                                    _P],
         "shard_merge_child": [_P, _P, _I, _I, _I, MergeState, _P],
+    },
+    "sort": {
+        "lex_sort": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

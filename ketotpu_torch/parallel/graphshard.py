@@ -39,8 +39,9 @@ tensors; for CUDA tensors it launches the kernel or raises):
 
 plus the mask inputs of ``fastpath.init_state`` (``assign``),
 ``algebra.gen_classify`` (``shard``), ``gen_construct`` (``owner``) and
-``gen_collect`` (``n_shards``), and ``fastpath._pack_scatter`` reading
-the received rows as they are.
+``gen_collect`` (``n_shards``), and the packs (``fastpath._pack_scatter``
+or, past 31 key bits, ``fastpath._pack_sort``) reading the received rows
+as they are.
 """
 
 from __future__ import annotations
@@ -466,6 +467,7 @@ def _sharded_levels(ops: MeshOps, tables, devs, fronts, qf, qo, qd, qsubj,
     ns_dim, rel_dim = tables[0]["f_direct_ok"].shape
     nsb, relb = fp._pack_bits(ns_dim), fp._pack_bits(rel_dim)
     fops = ops.gen.fast
+    pack = fp._pack_op(fops, qf[0].shape[0], nsb, relb)
     levels = len(sched)
     for i, (_fl, a) in enumerate(sched):
         probe_only = probe_last and i == levels - 1
@@ -499,7 +501,7 @@ def _sharded_levels(ops: MeshOps, tables, devs, fronts, qf, qo, qd, qsubj,
         nxt = sched[i + 1][0] if i + 1 < levels else sched[i][0]
         for d, dev in enumerate(devs):
             with _on(dev):
-                fronts[d], qo[d] = fops.pack_scatter(
+                fronts[d], qo[d] = pack(
                     recvs[d], merged[d], qo[d], frontier=nxt, nsb=nsb, relb=relb,
                     occ_out=None if occ is None else occ[d][i + 1:i + 2],
                 )
@@ -512,13 +514,6 @@ def _merge_final(ops: MeshOps, qf, qo, qd, dev) -> Tensor:
     int32[3, Q]."""
     with _on(dev):
         return ops.merge(gather([[f, o, d] for f, o, d in zip(qf, qo, qd)], dev))
-
-
-def _check_key_bits(tables, q: int) -> None:
-    ns_dim, rel_dim = tables[0]["f_direct_ok"].shape
-    bits = fp._pack_bits(q) + fp._pack_bits(ns_dim) + fp._pack_bits(rel_dim)
-    if bits > 31:
-        raise NotImplementedError(f"sort-based pack for {bits} key bits is not ported")
 
 
 class ShardedResult(NamedTuple):
@@ -549,7 +544,6 @@ def _sharded_fast(ops: MeshOps, tables, queries, mesh: Mesh, *, frontier: int,
     if assign is None:
         assign = shard_of_np(np.clip(q_ns.astype(np.int64), 0, None),
                              np.clip(q_obj.astype(np.int64), 0, None), n)
-    _check_key_bits(tables, Q)
     block = np.stack([q_ns, q_obj, q_rel, q_subj, q_depth, act.astype(np.int32),
                       np.asarray(assign, np.int32)]).astype(np.int32)
     fops = ops.gen.fast
@@ -646,7 +640,6 @@ def _sharded_general(ops: MeshOps, tables, qpack, mesh: Mesh, *, sizes,
     qp_np = np.ascontiguousarray(
         qpack.cpu().numpy() if isinstance(qpack, Tensor) else qpack, np.int32)
     q = qp_np.shape[1]
-    _check_key_bits(tables, fast_b)
     depth = len(sizes)
     qps, sts = [], []
     for dev in devs:

@@ -59,6 +59,15 @@ class InMemoryTupleStore:
         self.overflow_evictions = 0
         self._overflow_episode = False
 
+    def with_network(self, nid: str):
+        """A network-scoped handle over this store: rows scoped by a
+        tenant prefix on the namespace column, the change log global
+        (nid-filtered slices, global head), a per-nid version counter
+        (``tenancy/store.py``)."""
+        from ketotpu_torch.tenancy.store import TenantStoreView
+
+        return TenantStoreView(self, nid)
+
     # -- change notification -------------------------------------------------
 
     def on_change(self, fn: Callable[[int], None]) -> None:

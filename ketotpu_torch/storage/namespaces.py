@@ -9,6 +9,7 @@ OPL file (re-parsed on change, keeping the previous value on parse errors,
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
 from typing import Iterable, List, Optional, Protocol
@@ -16,6 +17,16 @@ from typing import Iterable, List, Optional, Protocol
 from ketotpu_torch.api.types import BadRequestError, NotFoundError
 from ketotpu_torch.opl.ast import Namespace, Relation
 from ketotpu_torch.opl.parser import ParseError, parse
+
+
+def namespaces_fingerprint(namespaces: Iterable[Namespace]) -> int:
+    """Namespace-config identity: the AST reprs pin the content, so a
+    reloaded config re-projects even when the tuple store did not move."""
+    digest = hashlib.sha256()
+    for ns in namespaces:
+        digest.update(repr(ns).encode())
+        digest.update(b"\x00")
+    return int.from_bytes(digest.digest()[:8], "big", signed=True)
 
 
 class NamespaceManager(Protocol):

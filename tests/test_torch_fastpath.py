@@ -151,12 +151,19 @@ def test_expand_and_pack_levels_match_jax(synth):
     assert explored > 0
 
 
-def test_pack_phase_refuses_keys_wider_than_31_bits():
+def test_pack_phase_refuses_keys_wider_than_31_bits(monkeypatch):
+    """A key wider than 31 bits (8 + 14 + 14) does not take the hash
+    scatter: ``pack_phase`` packs it by sort (K5b,
+    ``tests/test_torch_packsort.py`` holds it to JAX)."""
+    def no_scatter(*_a, **_k):
+        raise AssertionError("the scatter cannot pack a 36-bit key")
+
+    monkeypatch.setattr(tfp, "_pack_scatter_plain", no_scatter)
     ch = tfp.Items.dead(8, "cpu")
     flags = torch.zeros(256, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tfp.pack_phase(ch, flags, flags, frontier=8, ns_dim=1 << 14,
-                       rel_dim=1 << 14)
+    out, qo = tfp.pack_phase(ch, flags, flags, frontier=8, ns_dim=1 << 14,
+                             rel_dim=1 << 14)
+    assert (out.qid == -1).all() and int(qo.sum()) == 0
 
 
 # -- the packed multi-level batch ------------------------------------------------

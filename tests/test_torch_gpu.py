@@ -563,3 +563,109 @@ def test_mesh_engine_on_the_card_matches_the_single_engine(mesh_engines, engine,
     assert got == [eng.oracle.check_is_member(q) for q in rows]
     for k in chip_smoke.MESH_KERNELS:
         assert kernels.LAUNCHES[k] > 0, k
+
+
+# -- K5b: the sort-based pack and the radix sort under it ---------------------------
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.parametrize("bits,n", [
+    ((32,), 1), ((32,), 1023), ((32, 32), 1024), ((14, 16, 4, 32), 1025),
+    ((14, 16, 4, 32), 65536), ((8, 0, 32), 4097), ((32, 32, 32, 32), 70001),
+    ((20, 32), 1 << 20),
+])
+def test_lex_sort_matches_its_plain_version(bits, n):
+    """The radix sort on the card, stable as its plain version: keys and
+    payload equal row for row, negatives and many ties included."""
+    _needs_card()
+    rng = np.random.default_rng(n + len(bits))
+    keys = []
+    for b in bits:
+        if b == 32:
+            k = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+            k[: n // 2] = rng.integers(-3, 3, n // 2)  # ties and negatives
+        else:
+            k = rng.integers(0, 1 << b, n) if b else np.zeros(n, np.int64)
+        keys.append(torch.from_numpy(k.astype(np.int32)).cuda())
+    payload = [torch.from_numpy(rng.integers(-99, 99, n).astype(np.int32)).cuda()
+               for _ in range(2)]
+    rec = chip_smoke.Recorder()
+    kernels.reset_launches()
+    rec.run("lex_sort", keys, *payload, bits=bits)
+    assert rec.err["lex_sort"] == 0 and kernels.LAUNCHES["lex_sort"] == 1
+
+
+def _sort_children(rng, a, q, dev, as_rows):
+    """``a`` children with a fifth dead and many duplicate keys, under
+    2^16 namespaces and 16 relations."""
+    cols = [rng.integers(-1, q, a), rng.integers(0, 1 << 16, a),
+            rng.integers(0, 5000, a), rng.integers(0, 16, a),
+            rng.integers(0, 6, a), rng.random(a) < 0.5, rng.random(a) < 0.3]
+    cols[0][rng.random(a) < 0.2] = -1
+    src, dst = rng.integers(0, a, a // 3), rng.integers(0, a, a // 3)
+    for c in range(4):
+        cols[c][dst] = cols[c][src]
+    if as_rows:
+        return torch.from_numpy(np.stack([c.astype(np.int32) for c in cols],
+                                         axis=1).copy()).to(dev)
+    return fp.Items(*(torch.from_numpy(c.astype(np.int32)).to(dev)
+                      for c in cols[:5]),
+                    torch.from_numpy(cols[5]).to(dev),
+                    torch.from_numpy(cols[6]).to(dev))
+
+
+@pytest.mark.parametrize("as_rows", [False, True], ids=["items", "rows"])
+@pytest.mark.parametrize("a,q,f", [(8, 4, 8), (1000, 300, 256),
+                                   (16384, 8192, 8192), (65536, 8192, 32768),
+                                   (65536, 8192, 64)])
+def test_pack_sort_matches_its_plain_version(a, q, f, as_rows):
+    """pack_sort (and the lex_sort it runs) on the card against their
+    plain versions: the frontier, the over bits and the occupancy."""
+    _needs_card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(a + f)
+    ch = _sort_children(rng, a, q, dev, as_rows)
+    qf = torch.from_numpy((rng.random(q) < 0.2).astype(np.int32)).to(dev)
+    qo = torch.from_numpy((rng.random(q) < 0.1).astype(np.int32)).to(dev)
+    occ = torch.zeros(1, dtype=torch.int32, device=dev)
+    rec = chip_smoke.Recorder()
+    rec.run("pack_sort", ch, qf, qo, frontier=f, nsb=16, relb=4, occ_out=occ)
+    assert rec.err["pack_sort"] == 0 and rec.err["lex_sort"] == 0
+    assert len(rec.calls["lex_sort"]) == 1
+
+
+def test_plane_past_31_key_bits_on_the_card():
+    """A 128-tenant plane (namespace dim 1024, relation dim 512) at Q =
+    8192: every tier-1 kernel held against its plain version level by
+    level, every pack by sort; the engine's verdicts are the oracle's."""
+    _needs_card()
+    from ketotpu_torch.api.types import RelationTuple
+    from ketotpu_torch.opl.parser import parse
+    from ketotpu_torch.storage.memory import InMemoryTupleStore
+    from ketotpu_torch.storage.namespaces import StaticNamespaceManager
+    from ketotpu_torch.tenancy import TenantPlane
+    from ketotpu_torch.utils.synth import SYNTH_OPL
+    from torch_parity import fill_plane, tenant_queries
+
+    ns, _ = parse(SYNTH_OPL)
+    plane = TenantPlane(InMemoryTupleStore(), StaticNamespaceManager(ns),
+                        max_tenants=129)
+    fill_plane(plane, RelationTuple.from_string, SYNTH_OPL, 128)
+    eng = DeviceCheckEngine(plane.fused_store, plane.manager)
+    rows = [RelationTuple.from_string(s) for s in tenant_queries(128, 8000, 7)]
+    qpack, _, _ = eng.pack_queries(rows)
+    tables = eng.device_tables()
+    sched = fp.level_schedule(qpack.shape[1], eng.frontier, eng.arena,
+                              eng.max_depth, 1)
+    rec = chip_smoke.Recorder()
+    chip_smoke.check_kernels(tables, qpack, sched, eng.max_width, rec)
+    assert all(e == 0 for e in rec.err.values())
+    assert rec.calls["pack_sort"] and not rec.calls["pack_scatter"]
+    kernels.reset_launches()
+    got = eng.batch_check(rows)
+    assert kernels.LAUNCHES["pack_sort"] > 0 and kernels.LAUNCHES["lex_sort"] > 0
+    assert got[::13] == [eng.oracle.check_is_member(q) for q in rows[::13]]

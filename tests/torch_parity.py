@@ -272,3 +272,67 @@ ALGEBRA_BATCHES = {
              + ["Doc:a#edit@alice", "Doc:a#open@alice"],
     "dedup": ["Doc:v#staff@u2", "Doc:v#staff@u3"],
 }
+
+
+# -- the tenant plane (tests/test_torch_tenancy.py, test_torch_packsort.py) ----
+
+#: relations each tenant's own OPL renames with its index: two relation
+#: names per tenant, so the relation vocabulary grows with the plane
+TENANT_RENAMED = ("viewers", "owners")
+#: one tenant's tiny synth graph (build_synth's shape)
+TENANT_SYNTH = dict(n_users=4, n_groups=2, n_folders=3, n_docs=5)
+
+
+def tenant_ids(n: int):
+    return [f"t{i:03d}" for i in range(n)]
+
+
+def tenant_opl(base_opl: str, i: int) -> str:
+    """Tenant i's own OPL: the synth OPL with its relations renamed."""
+    for rel in TENANT_RENAMED:
+        base_opl = base_opl.replace(rel, f"{rel}{i}")
+    return base_opl
+
+
+def tenant_tuples(i: int):
+    """Tenant i's tuples (unqualified strings): a tiny synth graph seeded
+    by i, under the renamed relations of :func:`tenant_opl`."""
+    from ketotpu_torch.utils.synth import build_synth
+
+    g = build_synth(seed=i, **TENANT_SYNTH)
+    out = []
+    for t in g.store.all_tuples():
+        s = str(t)
+        for rel in TENANT_RENAMED:
+            s = s.replace(f"#{rel}@", f"#{rel}{i}@")
+        out.append(s)
+    return out
+
+
+def fill_plane(plane, tuple_from_string, base_opl: str, n: int) -> None:
+    """Give ``plane`` n tenants, each with its own OPL and its tuples
+    written through its store view (either package's plane)."""
+    for i, nid in enumerate(tenant_ids(n)):
+        plane.set_opl(nid, tenant_opl(base_opl, i))
+        plane.view_for(nid).write_relation_tuples(
+            *[tuple_from_string(s) for s in tenant_tuples(i)])
+
+
+def tenant_queries(n_tenants: int, n: int, seed: int):
+    """Qualified check strings over the plane of :func:`fill_plane`:
+    Doc#view and Group#members rows of random tenants, users and objects
+    (the tiny graphs grant a good share of them)."""
+    sep = "\x1f"
+    rng = np.random.default_rng(seed)
+    nids = tenant_ids(n_tenants)
+    out = []
+    for _ in range(n):
+        nid = nids[int(rng.integers(n_tenants))]
+        u = f"u{int(rng.integers(TENANT_SYNTH['n_users']))}"
+        if rng.random() < 0.75:
+            d = int(rng.integers(TENANT_SYNTH["n_docs"]))
+            out.append(f"{nid}{sep}Doc:d{d}#view@{u}")
+        else:
+            g = int(rng.integers(TENANT_SYNTH["n_groups"]))
+            out.append(f"{nid}{sep}Group:g{g}#members@{u}")
+    return out
