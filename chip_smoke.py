@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-only   # phase 16 alone, on every card
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. build the CUDA kernels (tier 0, tier 1, the tier-2 algebra, the
-   fused wave, the Expand walk, the mesh and the radix sort) from
+   fused wave, the Expand walk, the mesh, the radix sort and the binary
+   search) from
    ``ketotpu_torch/csrc`` (one ``nvcc`` per source, all at once) into
    ``build/ketotpu_torch/``;
 2. build the 10M-tuple synth graph, project and upload it, then hold every
@@ -124,6 +126,28 @@ Phases, in order; any failure raises and exits non-zero:
    and ``lex_sort`` timed (library call: a stable ``torch.sort`` of the
    keys packed into one int64), and ``pack_sort``'s share of each wave.
 
+16. the query-data-parallel checks (``dp_phase``) on the tables of the
+   phase-3 engine as uploaded before any write (overlay empty): (a)
+   ``shard_fast_check`` over four 8,192-row slices of pure-OR Doc#view
+   traffic (phase 3's two chunks and two more), at the served caps
+   (frontier 8,192, arena 16,384) and the retry's (32,768 / 65,536), at n =
+   1 per slice and n = 4 slices of the card (one slice per card where
+   there are more), every kernel call of one slice's steps held against
+   its plain version, the n = 4 bits equal to the n = 1 slices', found
+   rows allowed and rows not over equal to the engine's verdicts,
+   launches per call one ``init_state`` and 5 x (``probe_level``,
+   ``arena_assign``, ``expand_children``, the pack), no oracle; checks/s
+   per call, over shares, device ms per step; (b) ``shard_general_check``
+   on phase 6's general rows at n = 1 and n = 4, the n = 4 codes and
+   occupancy rows equal to the n = 1 slices', rows not over equal to the
+   engine's verdicts, one slice held step by step as in phase 6; (c)
+   ``lex_searchsorted`` (``csrc/search.cu``) over the synth's 10.6M (ns,
+   obj, rel, subject) tuple columns sorted by ``lex_sort``, and over a
+   sorted phase-15 frontier, 65,536 queries each (half drawn from the
+   keys, half absent, some past each end): kernel equal to its plain
+   version, found rows equal to their queries, the insertion points equal
+   to ``torch.searchsorted``'s on packed keys; timed as in phase 11.
+
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
 imports nothing of JAX and nothing of the ``ketotpu`` package.
@@ -218,8 +242,14 @@ SORT_KERNELS = {
     "pack_sort": ("ketotpu_torch/csrc/pack.cu", "ketotpu/engine/fastpath.py:515"),
     "lex_sort": ("ketotpu_torch/csrc/sort.cu", "ketotpu/engine/xutil.py:81"),
 }
+#: the lexicographic binary search: CUDA source and the JAX function it
+#: replaces
+SEARCH_KERNELS = {
+    "lex_searchsorted": ("ketotpu_torch/csrc/search.cu",
+                         "ketotpu/engine/xutil.py:43"),
+}
 ALL_KERNELS = (*KERNELS, *GEN_KERNELS, *LEO_KERNELS, *WAVE_KERNELS,
-               *EXPAND_KERNELS, *MESH_KERNELS, *SORT_KERNELS)
+               *EXPAND_KERNELS, *MESH_KERNELS, *SORT_KERNELS, *SEARCH_KERNELS)
 #: the tier-1 kernels a fused wave launches (its results stay on the card:
 #: no pack_verdicts)
 WAVE_FAST_KERNELS = ("init_state", "probe_level", "arena_assign",
@@ -290,6 +320,7 @@ def pairs():
         "pack_scatter": (fp._pack_scatter, fp._pack_scatter_plain),
         "pack_sort": (fp._pack_sort, fp._pack_sort_plain),
         "lex_sort": (xutil.lex_sort, xutil._lex_sort_plain),
+        "lex_searchsorted": (xutil.lex_searchsorted, xutil._lex_searchsorted_plain),
         "pack_verdicts": (fp.pack_verdicts, fp._pack_verdicts_plain),
         "gen_classify": (alg.gen_classify, alg._gen_classify_plain),
         "gen_construct": (alg.gen_construct, alg._gen_construct_plain),
@@ -1169,6 +1200,12 @@ def kernel_bytes(name, args, kw, g) -> int:
                  else (len(keys), keys[0].shape[0]))
         # every key and payload column read once and written once, sorted
         return 8 * (nk + len(payload)) * n
+    if name == "lex_searchsorted":
+        keys, queries = tuple(args[0]), tuple(args[1])
+        k, q = len(keys), queries[0].shape[0]
+        # per distinct key row any search reads, its k words; the query
+        # columns; idx and found written
+        return 4 * k * search_slots(keys, queries) + 4 * k * q + 5 * q
     if name in ("pack_scatter", "pack_sort"):
         ch, qf = args[0], args[1]
         if isinstance(ch, torch.Tensor):  # the rows a shard received
@@ -1373,6 +1410,18 @@ LIBRARY = {
     # psum(x) > 0 of int32 0/1 partials is their max
     "shard_merge": lambda args, kw: torch.amax(args[0], 0),
 }
+
+
+def pack_columns(cols, lows, widths):
+    """int32 columns packed into one int64, most significant first, each
+    shifted by its low value (order-preserving)."""
+    packed = torch.zeros(cols[0].shape[0], dtype=torch.int64,
+                         device=cols[0].device)
+    for c, lo, w in zip(cols, lows, widths):
+        packed = (packed << w) | (c.to(torch.int64) - lo)
+    return packed
+
+
 def packed_sort(args, kw):
     """The library yardstick of a ``lex_sort`` call: one stable
     ``torch.sort`` of its keys packed into one int64 with the widths this
@@ -1385,16 +1434,33 @@ def packed_sort(args, kw):
     widths = [max(int(k.max()).bit_length(), 1) for k in keys]
     if sum(widths) > 63:
         return None
-    packed = torch.zeros(keys.shape[1], dtype=torch.int64, device=keys.device)
-    for k, w in zip(keys, widths):
-        packed = (packed << w) | k.to(torch.int64)
+    packed = pack_columns(keys, [0] * len(widths), widths)
     return lambda: torch.sort(packed, stable=True)
+
+
+def packed_search(args, kw):
+    """The library yardstick of a ``lex_searchsorted`` call: one
+    ``torch.searchsorted`` of its queries in its keys, each packed into one
+    int64 (each column shifted by its least value over keys and queries,
+    with the width the two need), when the widths fit 63 bits; else None.
+    The packing is done here, outside the timed call."""
+    keys, queries = tuple(args[0]), tuple(args[1])
+    if keys[0].numel() == 0:
+        return None
+    lows = [min(int(k.min()), int(q.min())) for k, q in zip(keys, queries)]
+    widths = [max((max(int(k.max()), int(q.max())) - lo).bit_length(), 1)
+              for k, q, lo in zip(keys, queries, lows)]
+    if sum(widths) > 63:
+        return None
+    pk = pack_columns(keys, lows, widths)
+    pq = pack_columns(queries, lows, widths)
+    return lambda: torch.searchsorted(pk, pq)
 
 
 #: per kernel, a function of a call's arguments that prepares the library
 #: yardstick and returns it as a call to time (or None where it does not
 #: apply)
-LIBRARY_PREPARED = {"lex_sort": packed_sort}
+LIBRARY_PREPARED = {"lex_sort": packed_sort, "lex_searchsorted": packed_search}
 #: kernels timed as a graph of back-to-back calls (they leave their inputs
 #: as they found them)
 CALLS_TIMED = (*LEO_KERNELS, *WAVE_KERNELS)
@@ -3314,13 +3380,474 @@ def tenant_phase():
     for name in SORT_KERNELS:
         log(f"[15] {name}: {len(rec.calls[name])} calls held, kernel == plain "
             f"(max abs err {rec.err[name]})")
-    return SimpleNamespace(entries=entries, runs=runs)
+    # one pure-OR wave's sort keys, for phase 16's search (the largest)
+    _t, args, kw = max(rec.calls["lex_sort"], key=lambda c: c[1][0].shape[1])
+    return SimpleNamespace(entries=entries, runs=runs,
+                           sort_keys=(args[0], kw["bits"]))
+
+
+# -- phase 16: the query-data-parallel checks, and the binary search --------------
+
+DP_SHARDS = 4  # n = 4 slices; n = 1 runs each slice alone
+#: phase 3's two pure-OR chunks, phase 2's grant-derived chunk (its
+#: allowed rows give the found bits something to hold) and one more
+DP_ROWS = DP_SHARDS * Q
+#: (frontier, arena) caps: the served first pass and the retry's
+DP_CAPS = {"served": (Q, 2 * Q), "retry": (4 * Q, 8 * Q)}
+DP_REPEATS = 3  # timed n = 4 calls per cap set
+SEARCH_Q = 1 << 16  # queries per search
+SEED_DP, SEED_SEARCH = 61, 67
+
+
+def search_slots(keys, queries) -> int:
+    """The distinct key rows a search of ``queries`` in ``keys`` reads: the
+    clamped midpoint of every live step and the insertion point compared
+    at the end (the plain version's walk, recorded)."""
+    from ketotpu_torch.engine import xutil
+
+    n, q = keys[0].shape[0], queries[0].shape[0]
+    if n == 0:
+        return 0
+    dev = queries[0].device
+    lo = torch.zeros(q, dtype=torch.int32, device=dev)
+    hi = torch.full((q,), n, dtype=torch.int32, device=dev)
+    read = []
+    for _ in range(int(n).bit_length() + 1):
+        mid = (lo + hi) // 2
+        at = mid.clamp(0, n - 1)
+        live = lo < hi
+        read.append(at[live])
+        go = live & xutil._lex_less([k[at.long()] for k in keys], queries)
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(go | ~live, hi, mid)
+    read.append(lo[lo < n])
+    return int(torch.unique(torch.cat(read)).numel())
+
+
+def search_queries(keys, nq: int, rng):
+    """``nq`` queries (int32[k, nq]) for the sorted ``keys`` (int32[k, N]),
+    the mask of those that must be found and where each kind lies: the first half drawn from the keys; then an
+    eighth each with column k - 2, or the last column, outside the keys'
+    range of that column (absent, their insertion point inside the
+    array), with column 0 below its least value (insertion point 0), and
+    above its largest (N)."""
+    k, n = len(keys), keys[0].shape[0]
+    dev = keys[0].device
+    take = torch.from_numpy(rng.integers(0, n, nq)).to(dev)
+    out = torch.stack([c[take] for c in keys])
+    lo = [int(c.min()) for c in keys]
+    hi = [int(c.max()) for c in keys]
+    r = torch.arange(nq, dtype=torch.int32, device=dev) % 7
+
+    def outside(c, below=False):
+        if below or hi[c] > 2**31 - 9:
+            return lo[c] - 1 - r
+        return hi[c] + 1 + r
+
+    half, e = nq // 2, nq // 8
+    parts = {"missing": (max(k - 2, 0), False), "missing_last": (k - 1, False),
+             "below": (0, True), "above": (0, False)}
+    where = {}
+    for i, (name, (c, below)) in enumerate(parts.items()):
+        sl = slice(half + i * e, half + (i + 1) * e)
+        out[c, sl] = outside(c, below)[sl]
+        where[name] = sl
+    must = torch.zeros(nq, dtype=torch.bool, device=dev)
+    must[:half] = True
+    return out, must, where
+
+
+def dp_capture(graph, engine, g, queries, verdicts, grant_chunk, mixed_q,
+               mverdicts):
+    """Phase 16's inputs, taken from the phase-3/6 engine (Leopard off,
+    unfused) before any write: its tables as uploaded at the start (the
+    overlay empty); phase 3's two pure-OR chunks, phase 2's grant-derived
+    chunk and one more random chunk, with that engine's verdicts; phase
+    6's general rows with the verdicts of its timed mixed run (padded with
+    inactive rows to a multiple of ``DP_SHARDS``); the store's tuple
+    columns."""
+    from ketotpu_torch.utils.synth import synth_queries
+
+    if bool(g["ov_dirty"].any()) or int(g["om_ptr"][-1]) or int(g["ovt_ptr"][-1]):
+        raise AssertionError("phase 16: the tables carry a non-empty overlay")
+    extra = list(grant_chunk) + synth_queries(
+        graph, DP_ROWS - len(queries) - len(grant_chunk), seed=SEED_DP)
+    rows = list(queries) + extra
+    allowed = np.concatenate([np.asarray(verdicts, bool),
+                              np.asarray(engine.batch_check(extra), bool)])
+    chunks = []
+    for lo in range(0, DP_ROWS, Q):
+        qp, err, general = engine.pack_queries(rows[lo: lo + Q])
+        if err.any() or general.any() or qp.shape[1] != Q:
+            raise AssertionError("phase 16: pure-OR rows off tier 1")
+        chunks.append(qp)
+    enc, gi = engine.encode_general(mixed_q)
+    n = len(gi)
+    gen = np.full((6, n + (-n % DP_SHARDS)), -1, np.int32)
+    for r in range(5):
+        gen[r, :n] = enc[r][gi]
+    gen[4, n:] = 1
+    gen[5] = np.arange(gen.shape[1]) < n
+    cols, alive, _tail, _head = graph.store.export_columns()
+    tuples = np.stack([np.asarray(cols[c])[alive]
+                       for c in ("ns", "obj", "rel", "subj")]).astype(np.int32)
+    return SimpleNamespace(g=g, engine=engine, fast=np.concatenate(chunks, axis=1),
+                           fast_allowed=allowed, gen=gen,
+                           gen_allowed=np.asarray(mverdicts, bool)[gi],
+                           tuples=tuples)
+
+
+def _launch_gate(launches, per_call, calls, what):
+    for name, k in per_call.items():
+        if launches[name] != k * calls:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, {k * calls} expected")
+    extra = {k: v for k, v in launches.items() if v and k not in per_call}
+    if extra:
+        raise AssertionError(f"{what}: other kernels launched: {extra}")
+
+
+def dp_fast(dp, rec: Recorder, dev0, mesh1, meshn):
+    """(a): ``shard_fast_check`` at both cap sets."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.engine import fastpath as fp
+    from ketotpu_torch.parallel import mesh as pm
+
+    g, eng = dp.g, dp.engine
+    depth, w = eng.max_depth, Q
+    ns_dim, rel_dim = g["f_direct_ok"].shape
+    pack = pack_name(w, fp._pack_bits(ns_dim), fp._pack_bits(rel_dim))
+    per_call = {"init_state": 1, "probe_level": depth, "arena_assign": depth,
+                "expand_children": depth, pack: depth}
+    cols, act, allowed = dp.fast[:5], dp.fast[5], dp.fast_allowed
+    out = {}
+    for cap, (fr, ar) in DP_CAPS.items():
+        kw = dict(frontier=fr, arena=ar, max_depth=depth, max_width=eng.max_width)
+        # one slice's every step, each kernel call against its plain version
+        rec.tag = ("dp", ("dp", w, fr, ar))
+        rec.dispatches[rec.tag] += 1
+        held = pm._shard_fast(rec.ops().fast, g, cols[:, :w], mesh1, axis="data",
+                              active=act[:w], **kw)
+        ones, dt1 = [], []
+        for s in range(DP_SHARDS):
+            sl = slice(s * w, (s + 1) * w)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            r = pm.shard_fast_check(g, cols[:, sl], mesh1, active=act[sl], **kw)
+            bits = (r.found.cpu().numpy(), r.over.cpu().numpy())
+            dt1.append(time.perf_counter() - t0)
+            _launch_gate(kernels.LAUNCHES, per_call, 1, f"dp n = 1 {cap}")
+            ones.append(bits)
+        if not (np.array_equal(held.found.cpu().numpy(), ones[0][0])
+                and np.array_equal(held.over.cpu().numpy(), ones[0][1])):
+            raise AssertionError(f"dp {cap}: the held slice != the kernel call")
+        found1 = np.concatenate([f for f, _ in ones])
+        over1 = np.concatenate([o for _, o in ones])
+        dtn, launches = [], None
+        for _ in range(DP_REPEATS):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            r = pm.shard_fast_check(g, cols, meshn, active=act, **kw)
+            found, over = r.found.cpu().numpy(), r.over.cpu().numpy()
+            dtn.append(time.perf_counter() - t0)
+            launches = dict(kernels.LAUNCHES)
+            _launch_gate(launches, per_call, DP_SHARDS, f"dp n = {DP_SHARDS} {cap}")
+            if not (np.array_equal(found, found1) and np.array_equal(over, over1)):
+                raise AssertionError(f"dp {cap}: n = {DP_SHARDS} bits != the "
+                                     f"{DP_SHARDS} n = 1 slices")
+        if (found1 & ~allowed).any():
+            raise AssertionError(f"dp {cap}: a found row the engine denied")
+        if ((found1 != allowed) & ~over1).any():
+            raise AssertionError(f"dp {cap}: a row not over differs from the engine")
+        cards = torch.cuda.device_count() if dev0.type == "cuda" else 1
+        multi = None
+        if cards > 1:
+            mc = pm.make_mesh(cards)
+            pick = [s % DP_SHARDS for s in range(cards)]
+            cc = np.concatenate([dp.fast[:, p * w:(p + 1) * w] for p in pick], axis=1)
+            dts = []
+            for _ in range(DP_REPEATS + 1):
+                t0 = time.perf_counter()
+                r = pm.shard_fast_check(g, cc[:5], mc, active=cc[5], **kw)
+                found, over = r.found.cpu().numpy(), r.over.cpu().numpy()
+                dts.append(time.perf_counter() - t0)
+                if not (np.array_equal(found, np.concatenate([ones[p][0] for p in pick]))
+                        and np.array_equal(over, np.concatenate([ones[p][1] for p in pick]))):
+                    raise AssertionError(f"dp {cap}: {cards} cards != the n = 1 slices")
+            multi = (cards, [cards * w / x for x in dts[1:]])  # the first copies
+        # device time of slice 0: each step, and the whole call (roots + the
+        # steps, queries already on the card) against its plain version
+        qp0 = torch.from_numpy(np.ascontiguousarray(dp.fast[:, :w])).to(dev0)
+        states = [fp.step_state(qp0, frontier=fr)]
+        for _ in range(depth - 1):
+            states.append(fp.step_impl(g, states[-1], frontier=fr, arena=ar,
+                                       max_width=eng.max_width))
+        step_ms = [device_ms(lambda s=s: fp.step_impl(
+            g, s, frontier=fr, arena=ar, max_width=eng.max_width)) for s in states]
+
+        def run(ops, fr=fr, ar=ar):
+            s = fp.step_state(qp0, frontier=fr, ops=ops)
+            for _ in range(depth):
+                s = fp.step_impl(g, s, frontier=fr, arena=ar,
+                                 max_width=eng.max_width, ops=ops)
+            return s
+
+        p0, k0, k1, p1 = (device_ms(lambda: run(fp._PLAIN_OPS)),
+                          device_ms(lambda: run(fp._OPS)),
+                          device_ms(lambda: run(fp._OPS)),
+                          device_ms(lambda: run(fp._PLAIN_OPS)))
+        bound = sum(kernel_bytes(name, a, k, g) for name in per_call
+                    for tag, a, k in rec.calls[name] if tag == rec.tag)
+        res = dict(
+            rows=len(found1), found=int(found1.sum()), over=float(over1.mean()),
+            checks_s_n1=[w / x for x in dt1],
+            checks_s_n=[DP_ROWS / x for x in dtn], launches=launches,
+            step_ms=step_ms, ms=(k0 + k1) / 2, plain_ms=(p0 + p1) / 2,
+            bound_ms=bound / HBM_BYTES_PER_S * 1e3, multi=multi)
+        out[cap] = res
+        log(f"[16] shard_fast_check at {cap} caps (frontier {fr}, arena {ar}, "
+            f"max_depth {depth}): n = 1 per {w}-row slice "
+            f"{', '.join(f'{x:.0f}' for x in res['checks_s_n1'])} checks/s; "
+            f"n = {DP_SHARDS} on one card ({DP_ROWS} rows) "
+            f"{', '.join(f'{x:.0f}' for x in res['checks_s_n'])} checks/s; "
+            f"found {res['found']}, over share {res['over']:.4f}; bits of n = "
+            f"{DP_SHARDS} == the n = 1 slices; found rows allowed and rows not "
+            f"over equal to the engine's verdicts; launches per n = "
+            f"{DP_SHARDS} call { {k: v for k, v in launches.items() if v} }")
+        log(f"[16] slice 0 on the card at {cap}: device ms per step "
+            f"{[round(x, 4) for x in step_ms]}, per call (roots + {depth} steps) "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.6f} ms (bytes, the held calls' sum); every call "
+            f"of its {depth} steps == plain")
+        if multi:
+            log(f"[16] one slice per card on {multi[0]} cards: "
+                f"{', '.join(f'{x:.0f}' for x in multi[1])} checks/s (after a "
+                f"first call that copies the tables to each card); bits == "
+                f"the n = 1 slices")
+    return out
+
+
+def dp_general(dp, rec: Recorder, mesh1, meshn):
+    """(b): ``shard_general_check`` at n = 1 and n = ``DP_SHARDS``."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.engine.optable import R_IS
+    from ketotpu_torch.parallel import mesh as pm
+
+    g, eng, gq = dp.g, dp.engine, dp.gen
+    nq = gq.shape[1]
+    active = gq[5] != 0
+    out = {}
+    for n, mesh in ((1, mesh1), (DP_SHARDS, meshn)):
+        sched = eng._gen_schedule(nq // n, 1)
+        sizes, fast_b, fast_sched, vcap = sched
+        kw = dict(sizes=sizes, fast_b=fast_b, fast_sched=fast_sched,
+                  max_width=eng.max_width, vcap=vcap)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        codes, occ = pm.shard_general_check(g, gq, mesh, **kw)
+        codes, occ = codes.cpu().numpy(), occ.cpu().numpy()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if occ.shape[0] != n:
+            raise AssertionError(f"dp general n = {n}: {occ.shape[0]} occ rows")
+        over = ((codes >> 2) & 1).astype(bool)[active]
+        got = (codes & 3)[active] == R_IS
+        if (got != dp.gen_allowed)[~over].any():
+            raise AssertionError(f"dp general n = {n}: a row not over differs "
+                                 f"from the engine's verdict")
+        out[n] = (codes, occ, kw, sched)
+        log(f"[16] shard_general_check n = {n}: {int(active.sum())} general rows "
+            f"(+{nq - int(active.sum())} inactive) at {shape_name(gen_key(gq[:, :nq // n], 1, sched))} "
+            f"per device in {dt * 1e3:.3f} ms = {active.sum() / dt:.0f} checks/s; "
+            f"over share {over.mean():.4f}, rows not over == the engine's "
+            f"verdicts; {occ.shape[0]} occ rows; launches {launches}")
+    codes4, occ4, kw4, sched4 = out[DP_SHARDS]
+    w = nq // DP_SHARDS
+    for s in range(DP_SHARDS):
+        c1, o1 = pm.shard_general_check(g, gq[:, s * w:(s + 1) * w], mesh1, **kw4)
+        if not (np.array_equal(c1.cpu().numpy(), codes4[s * w:(s + 1) * w])
+                and np.array_equal(o1.cpu().numpy()[0], occ4[s])):
+            raise AssertionError(f"dp general: slice {s} of n = {DP_SHARDS} != n = 1")
+    cards = torch.cuda.device_count() if mesh1.devices[0].type == "cuda" else 1
+    if cards == DP_SHARDS:
+        # one slice per card: the per-device shapes of n = 4
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        codes, occ = pm.shard_general_check(g, gq, pm.make_mesh(cards), **kw4)
+        codes, occ = codes.cpu().numpy(), occ.cpu().numpy()
+        dt = time.perf_counter() - t0
+        if not (np.array_equal(codes, codes4) and np.array_equal(occ, occ4)):
+            raise AssertionError(f"dp general: {cards} cards != n = {DP_SHARDS}")
+        log(f"[16] shard_general_check on {cards} cards, one slice each: "
+            f"{dt * 1e3:.3f} ms = {active.sum() / dt:.0f} checks/s; codes and "
+            f"occ rows == n = {DP_SHARDS} on one card")
+    q0 = np.ascontiguousarray(gq[:, :w])
+    check_general(g, q0, sched4, eng.max_width, rec,
+                  ("dp-general", gen_key(q0, 1, sched4)))
+    log(f"[16] shard_general_check: n = {DP_SHARDS} codes and occ rows == the "
+        f"{DP_SHARDS} n = 1 slices; slice 0 step by step, every K7 call == plain "
+        f"and the program == the plain program")
+
+
+def dp_search(dp, rec: Recorder, dev0, frontier_keys=None):
+    """(c): ``lex_searchsorted`` over the synth's sorted tuple columns (and
+    a sorted frontier of phase 15).  Returns the kernel line's entry."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.engine import xutil
+
+    rng = np.random.default_rng(SEED_SEARCH)
+    # each key set as one int32[4, N] block (no copy inside the timed call)
+    sets = {"tuples": torch.stack(
+        xutil.lex_sort(torch.from_numpy(dp.tuples).to(dev0))[0])}
+    if frontier_keys is not None:
+        keys, bits = frontier_keys
+        sets["frontier"] = torch.stack(xutil.lex_sort(keys.to(dev0), bits=bits)[0])
+    searches = {}
+    for name, keys in sets.items():
+        queries, must, where = search_queries(keys, SEARCH_Q, rng)
+        searches[name] = (keys, queries, must, where)
+    kernels.reset_launches()
+    results = {name: xutil.lex_searchsorted(keys, queries)
+               for name, (keys, queries, _m, _w) in searches.items()}
+    if dev0.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["lex_searchsorted"]
+    if launches != len(searches):
+        raise AssertionError(f"lex_searchsorted: {launches} launches")
+    shapes = {}
+    for name, (keys, queries, must, where) in searches.items():
+        idx, found = results[name]
+        n = keys[0].shape[0]
+        if not torch.equal(found, must):
+            raise AssertionError(f"search {name}: found {int(found.sum())}, "
+                                 f"{int(must.sum())} drawn from the keys")
+        at = idx.clamp(0, max(n - 1, 0)).long()
+        for k, q in zip(keys, queries):
+            if not torch.equal(k[at][found], q[found]):
+                raise AssertionError(f"search {name}: a found row's key != its query")
+        if (idx[where["below"]] != 0).any() or (idx[where["above"]] != n).any():
+            raise AssertionError(f"search {name}: a query past an end misplaced")
+        lib = packed_search((keys, queries), {})
+        if lib is not None and not torch.equal(lib().to(torch.int32), idx):
+            raise AssertionError(f"search {name}: torch.searchsorted disagrees")
+        shape = ("search", name, n, SEARCH_Q)
+        shapes[shape] = 1
+        rec.tag = ("search", shape)
+        rec.dispatches[rec.tag] += 1
+        rec.run("lex_searchsorted", keys, queries)
+        log(f"[16] lex_searchsorted over {n} sorted {name} keys ({len(keys)} "
+            f"columns): {SEARCH_Q} queries, {int(found.sum())} found (every one "
+            f"drawn from the keys), the rest absent, past both ends at 0 and N; "
+            f"kernel == plain (idx and found), == torch.searchsorted on packed "
+            f"keys{'' if lib is not None else ' (not packable)'}")
+    per = time_kernels(dp.g, rec, "search", ("lex_searchsorted",))["lex_searchsorted"]
+    for shape, r in per.items():
+        log(f"[16] lex_searchsorted {shape[1]} (N {shape[2]}, Q {shape[3]}): "
+            f"{r['ms']:.4f} ms on the card (host {r['host_ms']:.4f} ms per eager "
+            f"call), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
+            f"bound {r['bound_ms']:.6f} ms (bytes)")
+    source, replaces = SEARCH_KERNELS["lex_searchsorted"]
+    return {
+        "name": "lex_searchsorted", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": rec.err["lex_searchsorted"],
+        "ms": weighted(per, shapes, "ms"), "plain_ms": weighted(per, shapes, "plain_ms"),
+        "bound_ms": weighted(per, shapes, "bound_ms"), "bound_by": "bytes",
+        "library_ms": weighted(per, shapes, "library_ms"),
+        "path": "phase 16 (no engine caller)",
+        "ms_by_shape": {f"{s[1]}/N{s[2]}/Q{s[3]}": per[s]["ms"] for s in shapes},
+        "library_ms_by_shape": {f"{s[1]}/N{s[2]}/Q{s[3]}": per[s]["library_ms"]
+                                for s in shapes},
+        "bound_ms_by_shape": {f"{s[1]}/N{s[2]}/Q{s[3]}": per[s]["bound_ms"]
+                              for s in shapes},
+    }
+
+
+def dp_phase(dp, frontier_keys=None, devices=None):
+    """Phase 16: the query-data-parallel checks on the tables of the phase-3
+    engine before any write (``dp_capture``), then ``lex_searchsorted``.
+    Returns the kernel line's ``lex_searchsorted`` entry and the tier-1
+    kernels' launches on the n = 4 served-caps call."""
+    rec = Recorder()
+    dev0 = torch.device(devices[0] if devices else "cuda:0")
+    from ketotpu_torch.parallel import mesh as pm
+
+    mesh1 = pm.make_mesh(devices=[dev0])
+    meshn = pm.make_mesh(devices=[dev0] * DP_SHARDS)
+    oracle = dp.engine.oracle
+
+    def refuse(*_a, **_k):
+        raise AssertionError("phase 16 asked the oracle")
+
+    oracle.check_is_member = refuse  # no oracle on this path
+    try:
+        t0 = time.perf_counter()
+        fast = dp_fast(dp, rec, dev0, mesh1, meshn)
+        log(f"[16] (a) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_general(dp, rec, mesh1, meshn)
+        log(f"[16] (b) in {time.perf_counter() - t0:.1f} s")
+    finally:
+        del oracle.check_is_member
+    t0 = time.perf_counter()
+    entry = dp_search(dp, rec, dev0, frontier_keys)
+    log(f"[16] (c) in {time.perf_counter() - t0:.1f} s")
+    return SimpleNamespace(entry=entry, launches=fast["served"]["launches"],
+                           fast=fast)
+
+
+def dp_only() -> int:
+    """``python3 chip_smoke.py --dp-only``: phase 16 alone, with the set-up
+    it reads (the 10M graph, the Leopard-off unfused engine, phase 3's and
+    phase 2's pure-OR chunks, phase 6's mixed traffic, their verdicts),
+    on every card of the machine: with more than one card, (a) runs one
+    slice per card too, and (b) with four.  Prints each card's name and
+    power limit, then the device line."""
+    from ketotpu_torch import kernels
+    from ketotpu_torch.engine.device import DeviceCheckEngine
+    from ketotpu_torch.utils.synth import (build_synth_columnar, synth_queries,
+                                           synth_queries_mixed)
+
+    t_start = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    kernels.build()
+    graph = build_synth_columnar(seed=SEED_GRAPH)
+    engine = DeviceCheckEngine(graph.store, graph.manager,
+                               leopard={"enabled": False})
+    g = engine.device_tables()
+    queries = synth_queries(graph, N_BATCHES * Q, seed=SEED_QUERIES)
+    out = engine.batch_check(queries)
+    grants = known_allowed(graph, Q // 2, SEED_GRANTS)
+    mixed = grants + synth_queries(graph, Q - len(grants), seed=SEED_KERNEL_QUERIES)
+    mixed = [mixed[i] for i in np.random.default_rng(SEED_GRANTS).permutation(Q)]
+    mixed_q = synth_queries_mixed(graph, MIXED_N, seed=SEED_MIXED,
+                                  general_frac=GENERAL_FRAC)
+    engine.batch_check(mixed_q)
+    mout = engine.batch_check(mixed_q)
+    dp = dp_capture(graph, engine, g, queries, out, mixed, mixed_q, mout)
+    log(f"[16] set-up in {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    dpr = dp_phase(dp)
+    print(json.dumps({"kernels": [dpr.entry]}))
+    log(f"[16] data-parallel phase in {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(cards)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--dp-only"]:
+        return dp_only()
     from ketotpu_torch import kernels
     from ketotpu_torch.engine import fastpath as fp
     from ketotpu_torch.engine.device import DeviceCheckEngine
@@ -3676,6 +4203,9 @@ def main() -> int:
         log(f"[6] {name}: {len(rec.calls[name])} calls, kernel == plain "
             f"(max abs err {rec.err[name]}, whole state compared)")
 
+    # phase 16's inputs, before any write reaches the store
+    dp = dp_capture(graph, engine, g, queries, out, mixed, mixed_q, mout)
+
     fz = fused_paths(graph, rec, mixed_q, mout, engine)
     leng, state, memb = fz.leng, fz.state, fz.memb
     a_replay, b_replay, c_launch = fz.a_replay, fz.b_replay, fz.c_launch
@@ -3867,7 +4397,16 @@ def main() -> int:
     tp = tenant_phase()
     line.extend(tp.entries)
     log(f"[15] tenant phase in {time.perf_counter() - t0:.1f} s")
-    log(f"[15] total {time.perf_counter() - t_start:.1f} s")
+
+    # -- 16. the query-data-parallel checks, and the binary search --------------
+    t0 = time.perf_counter()
+    dpr = dp_phase(dp, frontier_keys=tp.sort_keys)
+    for entry in line:
+        if dpr.launches.get(entry["name"]):
+            entry["dp_path"] = {"launches": dpr.launches[entry["name"]]}
+    line.append(dpr.entry)
+    log(f"[16] data-parallel phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[16] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,10 @@ one device-to-host copy (:meth:`Packed.fetch`).  Its level loop,
 :func:`_level_loop`, also runs the algebra program's leaf sub-run
 (``engine/algebra.py``) from a leaf buffer in place of the roots, and its
 pass over a device-resident query block, :func:`_fast_pass`, is tier 1 of
-the fused wave (``engine/fused.py``).
+the fused wave (``engine/fused.py``).  :func:`step_impl` is the JAX
+unpacked step (a whole level at fixed caps, the last level building
+children too), which the query-data-parallel checks of
+``parallel/mesh.py`` run ``max_depth`` times from :func:`step_state`.
 
 Queries, frontier columns and the found/over/dirty bits are int32
 (skip/force bool); the bits are 0/1 int32 so the kernels can OR them
@@ -980,18 +983,99 @@ def _level_loop(ops: _Ops, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
     pack = _pack_op(ops, q_found.shape[0], nsb, relb)
     levels = len(sched)
     for i, (_f, a) in enumerate(sched):
-        last = i == levels - 1
-        q_found, q_dirty, lv = ops.probe_level(g, f, q_found, q_dirty, q_subj,
-                                               probe_only=last)
-        if last:
-            break  # the final level is probe-only: no children to pack
-        offsets, _total, parent, ordinal = ops.arena_assign(lv.counts, a)
-        children, q_over = ops.expand_children(
-            g, f, lv, offsets, parent, ordinal, q_found, q_over,
-            max_width=max_width,
-        )
-        f, q_over = pack(
-            children, q_found, q_over, frontier=sched[i + 1][0], nsb=nsb,
-            relb=relb, occ_out=occ[i + 1: i + 2],
+        if i == levels - 1:
+            # the final level is probe-only: no children to pack
+            q_found, q_dirty, _lv = ops.probe_level(g, f, q_found, q_dirty,
+                                                    q_subj, probe_only=True)
+            break
+        f, q_found, q_over, q_dirty = _step(
+            ops, pack, g, f, q_found, q_over, q_dirty, q_subj, arena=a,
+            frontier=sched[i + 1][0], max_width=max_width, nsb=nsb, relb=relb,
+            occ_out=occ[i + 1: i + 2],
         )
     return q_found, q_over, q_dirty
+
+
+def _step(ops: _Ops, pack, g: Tables, f: Items, q_found: Tensor, q_over: Tensor,
+          q_dirty: Tensor, q_subj: Tensor, *, arena: int, frontier: int,
+          max_width: int, nsb: int, relb: int,
+          occ_out: Optional[Tensor] = None):
+    """One whole level that builds children: the probes, the arena, the
+    children and ``pack`` into a ``frontier``-slot frontier.  Returns
+    (frontier, q_found, q_over, q_dirty)."""
+    q_found, q_dirty, lv = ops.probe_level(g, f, q_found, q_dirty, q_subj,
+                                           probe_only=False)
+    offsets, _total, parent, ordinal = ops.arena_assign(lv.counts, arena)
+    children, q_over = ops.expand_children(
+        g, f, lv, offsets, parent, ordinal, q_found, q_over, max_width=max_width,
+    )
+    f, q_over = pack(children, q_found, q_over, frontier=frontier, nsb=nsb,
+                     relb=relb, occ_out=occ_out)
+    return f, q_found, q_over, q_dirty
+
+
+# -- the unpacked step of the query-data-parallel checks ----------------------------
+
+
+#: ``init_state``'s depth clamp off: every level of the unpacked step builds
+#: children, so roots keep their depth (the JAX ``_init_state`` pads it as
+#: given)
+NO_CLAMP = 2**31 - 1
+
+
+class FastResult(NamedTuple):
+    """The verdict bits of a query-data-parallel check (bool[Q] each)."""
+
+    found: Tensor  # membership established (monotone)
+    over: Tensor  # a capacity overflow touched this query
+    # an expansion read a row the delta overlay marked dirty (None: the
+    # data-parallel checks drop it, as JAX does)
+    dirty: Optional[Tensor] = None
+
+
+class StepState(NamedTuple):
+    """The JAX ``step_impl`` state: the frontier and the per-query bits
+    (int32 0/1; ``q_subj`` int32[Q])."""
+
+    f: Items
+    q_found: Tensor
+    q_over: Tensor
+    q_dirty: Tensor
+    q_subj: Tensor
+
+
+def step_state(qpack: Tensor, *, frontier: int, act: Optional[Tensor] = None,
+               ops: Optional[_Ops] = None) -> StepState:
+    """The JAX ``_init_state``: the roots of the int32[R, Q] block (rows ns,
+    obj, rel, subj, depth first; ``act`` int32[Q], default row 5) in slots
+    0..Q-1 of a ``frontier``-slot frontier, depth as given (no clamp).
+    ``Q > frontier`` raises."""
+    ops = _OPS if ops is None else ops
+    occ = torch.zeros(1, dtype=torch.int32, device=qpack.device)
+    f, q_found, q_over, q_subj = ops.init_state(
+        qpack, frontier=frontier, levels=NO_CLAMP, occ_out=occ, act=act)
+    return StepState(f, q_found, q_over, torch.zeros_like(q_over), q_subj)
+
+
+def step_impl(g: Tables, s: StepState, *, frontier: int, arena: int,
+              max_width: int = 100, ops: Optional[_Ops] = None) -> StepState:
+    """One whole level of the JAX ``step_impl`` (``expand_phase`` then
+    ``pack_phase``, the pack picked by key bits from ``f_direct_ok``'s
+    shape): unlike :func:`_level_loop`, every level builds children, the
+    last included, so an arena or frontier overflow there sets ``over``."""
+    ops = _OPS if ops is None else ops
+    ns_dim, rel_dim, _, _ = _dims(g)
+    nsb, relb = _pack_bits(ns_dim), _pack_bits(rel_dim)
+    pack = _pack_op(ops, s.q_found.shape[0], nsb, relb)
+    f, q_found, q_over, q_dirty = _step(
+        ops, pack, g, s.f, s.q_found, s.q_over, s.q_dirty, s.q_subj,
+        arena=arena, frontier=frontier, max_width=max_width, nsb=nsb, relb=relb)
+    return StepState(f, q_found, q_over, q_dirty, s.q_subj)
+
+
+#: the JAX ``fast_step`` (``step_impl`` jitted with ``s`` donated).  No
+#: kernel of a step can write over its input: each reads, from other
+#: threads, the frontier and the bits it replaces.  So ``s``'s buffers are
+#: reused by the caching allocator once the caller drops ``s``
+#: (``s = fast_step(g, s, ...)``), and ``q_subj`` passes through uncopied.
+fast_step = step_impl

@@ -1,13 +1,16 @@
-"""Arena allocation (K4) and the lexicographic sort of key columns.
+"""Arena allocation (K4), the lexicographic sort of key columns and the
+lexicographic binary search over them.
 
 :func:`arena_assign` turns per-task child counts into flat child slots:
 the batched replacement for goroutine fan-out in the reference
 (`internal/check/checkgroup/concurrent_checkgroup.go:66-138`), as in the
 JAX package's ``engine/xutil.py``.  :func:`lex_sort` sorts int32 key
 columns lexicographically with payload columns carried along; the
-sort-based frontier pack (``fastpath._pack_sort``) calls it.  Each
-launches its CUDA kernel (``csrc/arena.cu``, ``csrc/sort.cu``) on CUDA
-tensors and runs its plain PyTorch version on CPU tensors.
+sort-based frontier pack (``fastpath._pack_sort``) calls it.
+:func:`lex_searchsorted` finds query keys in columns sorted that way; as
+in JAX, nothing of the engine calls it.  Each launches its CUDA kernel
+(``csrc/arena.cu``, ``csrc/sort.cu``, ``csrc/search.cu``) on CUDA tensors
+and runs its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -152,3 +155,93 @@ def _lex_sort_cuda(keys: Tuple[Tensor, ...], payload: Tuple[Tensor, ...], bits,
     )
     kernels.LAUNCHES["lex_sort"] += 1
     return tuple(keys_out), tuple(pay_out)
+
+
+# -- the lexicographic binary search -----------------------------------------------
+
+
+def lex_searchsorted(keys, queries) -> Tuple[Tensor, Tensor]:
+    """Vectorized lexicographic binary search: the JAX ``lex_searchsorted``.
+
+    ``keys``: K int32 columns of length N sorted together in
+    :func:`lex_sort` order (``keys[0]`` most significant), as a sequence
+    of tensors or one int32[K, N] tensor; ``queries``: K int32 columns of
+    length Q, the same way.  Returns ``(idx int32[Q], found bool[Q])``:
+    the insertion point (first index whose key is >= the query) and
+    whether the key there equals the query.  N == 0 gives idx 0 and
+    found False."""
+    if not len(keys) or len(keys) != len(queries):
+        raise ValueError(f"{len(keys)} key columns, {len(queries)} query columns")
+    if queries[0].device.type == "cpu":
+        return _lex_searchsorted_plain(keys, queries)
+    return _lex_searchsorted_cuda(keys, queries)
+
+
+def _lex_searchsorted_plain(keys, queries) -> Tuple[Tensor, Tensor]:
+    """JAX's unrolled ``bit_length(N) + 1`` steps, every midpoint gather
+    clamped to N - 1."""
+    keys, queries = tuple(keys), tuple(queries)
+    n = keys[0].shape[0]
+    q = queries[0].shape[0]
+    dev = queries[0].device
+    if n == 0:
+        return (torch.zeros(q, dtype=torch.int32, device=dev),
+                torch.zeros(q, dtype=torch.bool, device=dev))
+    lo = torch.zeros(q, dtype=torch.int32, device=dev)
+    hi = torch.full((q,), n, dtype=torch.int32, device=dev)
+    for _ in range(max(1, int(n).bit_length() + 1)):
+        mid = (lo + hi) // 2
+        at = mid.clamp(0, n - 1).to(torch.int64)
+        live = lo < hi
+        go_right = live & _lex_less([k[at] for k in keys], queries)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right | ~live, hi, mid)
+    at = lo.clamp(0, n - 1).to(torch.int64)
+    found = (lo < n) & _lex_eq([k[at] for k in keys], queries)
+    return lo, found
+
+
+def _lex_less(a, b) -> Tensor:
+    """Elementwise a < b under lexicographic order over key columns."""
+    lt = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    eq = torch.ones_like(lt)
+    for ka, kb in zip(a, b):
+        lt = lt | (eq & (ka < kb))
+        eq = eq & (ka == kb)
+    return lt
+
+
+def _lex_eq(a, b) -> Tensor:
+    eq = torch.ones(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for ka, kb in zip(a, b):
+        eq = eq & (ka == kb)
+    return eq
+
+
+def _block(cols, name: str, dev) -> Tensor:
+    """The columns as one contiguous int32[K, n] block: the caller's, when
+    it passed one, else stacked."""
+    if isinstance(cols, Tensor) and cols.dim() == 2:
+        kernels.require(cols, torch.int32, name, device=dev)
+        return cols
+    n = cols[0].shape[0]
+    for i, c in enumerate(cols):
+        kernels.require(c, torch.int32, f"{name} column {i}", shape=(n,),
+                        device=dev)
+    return torch.stack(tuple(cols))
+
+
+def _lex_searchsorted_cuda(keys, queries) -> Tuple[Tensor, Tensor]:
+    nk = len(keys)
+    if nk > MAX_SORT_KEYS:
+        raise ValueError(f"{nk} key columns: the kernel takes at most {MAX_SORT_KEYS}")
+    dev = queries[0].device
+    kb, qb = _block(keys, "keys", dev), _block(queries, "queries", dev)
+    n, q = kb.shape[1], qb.shape[1]
+    idx = torch.empty(q, dtype=torch.int32, device=dev)
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    kernels.launch("search", "lex_searchsorted", kernels.ptr(kb), nk, n,
+                   kernels.ptr(qb), q, kernels.ptr(idx), kernels.ptr(found),
+                   kernels.stream())
+    kernels.LAUNCHES["lex_searchsorted"] += 1
+    return idx, found

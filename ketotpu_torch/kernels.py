@@ -1,7 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources are
-``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand,shard,sort}.cu``
+``csrc/{probe,arena,children,pack,algebra,leopard,wave,expand,shard,sort,search}.cu``
 (plus the shared headers ``common.cuh``, ``scan.cuh``, ``leopard.cuh`` and
 ``sort.cuh``).
 Each ``.cu`` compiles with ``nvcc`` into its own shared library with a
@@ -35,7 +35,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MODULES = ("probe", "arena", "children", "pack", "algebra", "leopard", "wave",
-           "expand", "shard", "sort")
+           "expand", "shard", "sort", "search")
 HEADERS = ("common.cuh", "scan.cuh", "leopard.cuh", "sort.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "pack_scatter": 0,
     "pack_sort": 0,
     "lex_sort": 0,
+    "lex_searchsorted": 0,
     "init_state": 0,
     "pack_verdicts": 0,
     "gen_classify": 0,
@@ -268,6 +269,9 @@ _SIGNATURES = {
     "sort": {
         "lex_sort": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "search": {
+        "lex_searchsorted": [_P, _I, _I, _P, _I, _P, _P, _P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -355,6 +359,8 @@ class DeviceTables(dict):
     _graph: Optional[Graph] = None
     _prog: Optional[Prog] = None
     _xtab: Optional["XTab"] = None
+    #: copies on other devices (``parallel.mesh.replicate``)
+    _replicas: Optional[dict] = None
 
 
 def graph(g: Dict[str, torch.Tensor]) -> Graph:

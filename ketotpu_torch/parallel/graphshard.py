@@ -46,7 +46,6 @@ as they are.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,16 +62,13 @@ from ketotpu_torch.engine.snapshot import (
     Snapshot,
 )
 from ketotpu_torch.engine.vocab import Vocab
-from ketotpu_torch.parallel.mesh import Mesh
+from ketotpu_torch.parallel.mesh import Mesh, _on
 
 Tensor = torch.Tensor
 
 #: one routed child: qid, ns, obj, rel, d, skip, force (int32 each), and
 #: the send block's fills
 ROUTE_FILLS = (-1, -1, -1, -1, 0, 1, 0)
-#: the sharded fast run expands every level: roots keep their depth
-#: (``init_state``'s level clamp off)
-NO_CLAMP = 2**31 - 1
 #: the task columns a construction writes (the child merge's columns)
 CHILD_COLS = alg.TASK_COLS[:12]
 
@@ -186,11 +182,6 @@ def upload_shards(stacked: Dict[str, np.ndarray], mesh: Mesh,
 
 
 # -- collectives (copies) --------------------------------------------------------
-
-
-def _on(dev: torch.device):
-    """Launch context of one shard: its card is the current device."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def gather(parts: Sequence, dev: torch.device) -> Tensor:
@@ -553,7 +544,7 @@ def _sharded_fast(ops: MeshOps, tables, queries, mesh: Mesh, *, frontier: int,
             qp = torch.from_numpy(block).to(dev)
             occ = torch.zeros(1, dtype=torch.int32, device=dev)
             f, found, over, subj = fops.init_state(
-                qp[:5], frontier=frontier, levels=NO_CLAMP, occ_out=occ,
+                qp[:5], frontier=frontier, levels=fp.NO_CLAMP, occ_out=occ,
                 act=qp[5], assign=qp[6], me=s,
             )
         fronts.append(f)

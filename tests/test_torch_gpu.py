@@ -669,3 +669,88 @@ def test_plane_past_31_key_bits_on_the_card():
     got = eng.batch_check(rows)
     assert kernels.LAUNCHES["pack_sort"] > 0 and kernels.LAUNCHES["lex_sort"] > 0
     assert got[::13] == [eng.oracle.check_is_member(q) for q in rows[::13]]
+
+
+@pytest.mark.parametrize("k,n,q", [
+    (1, 0, 5), (1, 1, 7), (2, 1025, 4097), (4, 65536, 65536), (8, 5000, 300),
+    (4, 1 << 20, 1 << 16),
+])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_lex_searchsorted_matches_its_plain_version(k, n, q, order):
+    """The binary search on the card against the plain unrolled search:
+    idx and found equal for every query, on keys sorted by ``lex_sort``
+    (queries half drawn from the keys, negatives and both ends) and on
+    unsorted keys, where both take the same midpoints."""
+    _needs_card()
+    rng = np.random.default_rng(k * 31 + n)
+    keys = torch.from_numpy(rng.integers(-4, 4, (k, n)).astype(np.int32)).cuda()
+    if order == "sorted" and n:
+        keys = torch.stack(xutil.lex_sort(keys)[0])
+    queries = torch.from_numpy(rng.integers(-6, 6, (k, q)).astype(np.int32)).cuda()
+    if n:
+        take = torch.from_numpy(rng.integers(0, n, q // 2)).cuda()
+        queries[:, : q // 2] = keys[:, take]
+    rec = chip_smoke.Recorder()
+    kernels.reset_launches()
+    rec.run("lex_searchsorted", keys, queries)
+    assert rec.err["lex_searchsorted"] == 0
+    assert kernels.LAUNCHES["lex_searchsorted"] == 1
+    if order == "sorted" and n:
+        idx, found = xutil.lex_searchsorted(tuple(keys), tuple(queries))
+        assert found[: q // 2].all()
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("frontier,arena,depth", [(1024, 2048, 5), (64, 64, 3)])
+def test_shard_fast_check_kernels_match_their_plain_versions(engine, n, frontier,
+                                                             arena, depth):
+    """The query-data-parallel fast path on n slices of the card: every
+    step's kernel calls against their plain versions, and the found / over
+    bits against the plain run's; the small caps overflow at the last
+    level, whose children are built too."""
+    from ketotpu_torch.parallel import mesh as pm
+
+    g, eng = engine
+    qpack, _, _ = eng.pack_queries(synth_queries(g, 512, seed=n))
+    qpack = np.ascontiguousarray(qpack[:, : min(qpack.shape[1], frontier * n)])
+    mesh = pm.make_mesh(devices=["cuda:0"] * n)
+    kw = dict(frontier=frontier, arena=arena, max_depth=depth,
+              max_width=eng.max_width, axis="data", active=qpack[5])
+    tables = eng.device_tables()
+    rec = chip_smoke.Recorder()
+    got = pm._shard_fast(rec.ops().fast, tables, qpack[:5], mesh, **kw)
+    want = pm._shard_fast(fp._PLAIN_OPS, tables, qpack[:5], mesh, **kw)
+    assert all(e == 0 for e in rec.err.values())
+    assert torch.equal(got.found, want.found) and torch.equal(got.over, want.over)
+    kernels.reset_launches()
+    res = pm.shard_fast_check(tables, qpack[:5], mesh, **kw)
+    assert torch.equal(res.found, got.found) and torch.equal(res.over, got.over)
+    assert kernels.LAUNCHES["init_state"] == n
+    assert kernels.LAUNCHES["probe_level"] == n * depth
+    if arena < 2048:
+        assert res.over.any()
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_shard_general_check_kernels_match_their_plain_versions(n):
+    """The query-data-parallel K7 program on the AND/NOT fixture, n slices
+    of the card: codes and each slice's occupancy row against the plain
+    program's."""
+    from ketotpu_torch.engine import algebra as alg
+    from ketotpu_torch.parallel import mesh as pm
+
+    _needs_card()
+    eng, batches = chip_smoke.fixture_engine()
+    rows = [t for name, b in batches.items() if name != "flood" for t in b]
+    enc, gi = eng.encode_general(rows)
+    qpack, _ = eng.pack_general(enc, gi, 1)
+    qpack = qpack[:, : qpack.shape[1] // n * n]
+    sizes, fast_b, fast_sched, vcap = eng._gen_schedule(qpack.shape[1] // n, 1)
+    kw = dict(sizes=sizes, fast_b=fast_b, fast_sched=fast_sched,
+              max_width=eng.max_width, vcap=vcap, axis="data")
+    mesh = pm.make_mesh(devices=["cuda:0"] * n)
+    tables = eng.device_tables()
+    codes, occ = pm.shard_general_check(tables, qpack, mesh, **kw)
+    pcodes, pocc = pm._shard_general(alg._PLAIN_OPS, tables, qpack, mesh, **kw)
+    assert torch.equal(codes, pcodes) and torch.equal(occ, pocc)
+    assert occ.shape[0] == n
