@@ -70,8 +70,12 @@ Phases, in order; any failure raises and exits non-zero:
    back on its own inputs, which it does not change), its plain version
    and, where one PyTorch call computes the same function, that call;
    time one whole wave per fused path on the card, with and without its
-   retry lanes; print the kernel JSON line, whose per-launch numbers are
-   weighted by the timed runs' launches at each shape;
+   retry lanes; count the device operations of one ``arena_assign`` call
+   per shape with ``torch.profiler`` (one launch; more fails the run);
+   time ``arena_assign`` (and ``lex_sort`` in phases 15 and 16) also as
+   graphs of back-to-back calls beside its library call; print the kernel
+   JSON line, whose per-launch numbers are weighted by the timed runs'
+   launches at each shape;
 12. the write path on path A's engine (fused, Leopard on, the served
    defaults; every check table carries the delta overlay, empty until the
    first write): (a) memberships added to nested groups and base
@@ -124,7 +128,10 @@ Phases, in order; any failure raises and exits non-zero:
    of one tenant denied on another's docs, a write through a tenant's
    view, a tenant created after the traffic (one rebuild); ``pack_sort``
    and ``lex_sort`` timed (library call: a stable ``torch.sort`` of the
-   keys packed into one int64), and ``pack_sort``'s share of each wave.
+   keys packed into one int64), ``lex_sort``'s device operations per call
+   counted with ``torch.profiler`` (at most the memset, the histograms and
+   one launch per digit pass; more fails the run), and ``pack_sort``'s
+   share of each wave.
 
 16. the query-data-parallel checks (``dp_phase``) on the tables of the
    phase-3 engine as uploaded before any write (overlay empty): (a)
@@ -146,7 +153,10 @@ Phases, in order; any failure raises and exits non-zero:
    sorted phase-15 frontier, 65,536 queries each (half drawn from the
    keys, half absent, some past each end): kernel equal to its plain
    version, found rows equal to their queries, the insertion points equal
-   to ``torch.searchsorted``'s on packed keys; timed as in phase 11.
+   to ``torch.searchsorted``'s on packed keys; timed as in phase 11.  Both
+   sorts under it (the 10.6M tuple rows at 4 x 32 bits, 16 digit passes;
+   the phase-15 frontier) are held against ``lex_sort``'s plain version,
+   timed, and their device operations counted as in phase 15.
 
 The card's name and power limit (as ``nvidia-smi`` reports them) are
 printed before the last line, which is the device JSON object.  The script
@@ -564,6 +574,8 @@ def shape_name(shape) -> str:
         return "/".join(parts)
     if shape[0] == "leo":
         return f"leo/Q{shape[1]}/cap{shape[2]}"
+    if shape[0] == "sort":
+        return f"sort/{shape[1]}/N{shape[2]}/K{shape[3]}"
     if shape[0] == "expand":
         return f"expand/R{shape[1]}/" + "x".join(map(str, shape[2]))
     if shape[0] == "gen":
@@ -1078,6 +1090,76 @@ def device_ms(fn, reps: int = 20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ops(fn):
+    """The device operations (kernels, memsets, copies) one ``fn()`` call
+    enqueues, by name: a ``torch.profiler`` trace of one call, after a warm
+    one.  None where the trace holds no device event (the count is then not
+    measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the first trace of a process can come back without device events:
+    # one more try
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return None
+
+
+def gate_ops(rec: Recorder, dataset: str, name: str, most, phase: str):
+    """Per shape of ``dataset``'s kept ``name`` calls, the device operations
+    one call enqueues (:func:`device_ops` over the first call kept at the
+    shape), logged; raises where more than ``most(args, kw)`` (the source's
+    count) were measured.  Returns the kernel line's
+    ``device_ops_by_shape`` ("not measured" where the profiler saw no
+    device event)."""
+    kernel = pairs()[name][0]
+    out = {}
+    for tag, args, kw in rec.calls[name]:
+        if tag is None or tag[0] != dataset or args is None:
+            continue
+        key = shape_name(tag[1])
+        if key in out:
+            continue
+        rows = (args[0].shape[-1] if isinstance(args[0], torch.Tensor)
+                else args[0][0].shape[0])
+        bound = most(args, kw)
+        ops = device_ops(lambda args=args, kw=kw: kernel(*args, **kw))
+        if ops is None:
+            log(f"{phase} {name} at {key} ({rows} rows): device operations per "
+                f"call not measured (the profiler saw no device event); the "
+                f"source enqueues {bound}")
+            out[key] = "not measured"
+            continue
+        log(f"{phase} {name} at {key} ({rows} rows): {len(ops)} device "
+            f"operations per call (torch.profiler; the source's count "
+            f"{bound}): {dict(Counter(ops))}")
+        if len(ops) > bound:
+            raise AssertionError(f"{name} at {key}: {len(ops)} device operations "
+                                 f"per call, the source enqueues {bound}")
+        out[key] = len(ops)
+    return out
+
+
+def sort_ops(args, kw) -> int:
+    """The device operations of one ``lex_sort`` call by the source: the
+    memset, the histograms and one launch per digit pass (two copies when
+    there is no pass)."""
+    from ketotpu_torch.engine import xutil
+
+    keys = args[0]
+    n = keys.shape[-1] if isinstance(keys, torch.Tensor) else keys[0].shape[0]
+    nk = keys.shape[0] if isinstance(keys, torch.Tensor) else len(keys)
+    bits = kw.get("bits") or (32,) * nk
+    return 2 + len(xutil.sort_layout(n, bits).passes)
+
+
 def host_ms(fn, reps: int = 20) -> float:
     """Wall time per eager call, enqueue included, synchronized at the end."""
     fn()
@@ -1464,6 +1546,10 @@ LIBRARY_PREPARED = {"lex_sort": packed_sort, "lex_searchsorted": packed_search}
 #: kernels timed as a graph of back-to-back calls (they leave their inputs
 #: as they found them)
 CALLS_TIMED = (*LEO_KERNELS, *WAVE_KERNELS)
+#: kernels also timed back to back beside their library call (``b2b_ms``,
+#: ``library_b2b_ms``): a replay of one call carries the graph launch too,
+#: which at a few microseconds blurs the comparison
+B2B_TIMED = ("arena_assign", "lex_sort")
 
 
 def calls_ms(fn):
@@ -1527,7 +1613,8 @@ def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS, sample=None)
         for tag, args, kw in _sampled(rec.calls[name], dataset, sample):
             r = by_shape.setdefault(tag[1], {
                 "ms": [], "plain_ms": [], "library_ms": [], "host_ms": [],
-                "bound_ms": [], "spread_ms": []})
+                "bound_ms": [], "spread_ms": [], "b2b_ms": [],
+                "library_b2b_ms": []})
             i = state_index(args)
             # plain, kernel, kernel, plain: neither gains from going first
             if i is None:
@@ -1564,6 +1651,16 @@ def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS, sample=None)
                 lib_fn = LIBRARY_PREPARED[name](args, kw)
                 if lib_fn is not None:
                     r["library_ms"].append(device_ms(lib_fn))
+            if name in B2B_TIMED:
+                # kernel, library, library, kernel, each a graph of calls
+                # back to back
+                lib_fn = ((lambda args=args, kw=kw: LIBRARY[name](args, kw))
+                          if name in LIBRARY else LIBRARY_PREPARED[name](args, kw))
+                kb0 = calls_ms(k)[0]
+                if lib_fn is not None:
+                    r["library_b2b_ms"].append(
+                        (calls_ms(lib_fn)[0] + calls_ms(lib_fn)[0]) / 2)
+                r["b2b_ms"].append((kb0 + calls_ms(k)[0]) / 2)
             r["bound_ms"].append(
                 kernel_bytes(name, args, kw, g) / HBM_BYTES_PER_S * 1e3)
         rows[name] = {
@@ -1573,6 +1670,16 @@ def time_kernels(g, rec: Recorder, dataset: str, names=ALL_KERNELS, sample=None)
             for shape, r in by_shape.items()
         }
     return rows
+
+
+def b2b_note(r) -> str:
+    """The back-to-back times of a :data:`B2B_TIMED` kernel's row, for a
+    log line ("" for other kernels)."""
+    if r.get("b2b_ms") is None:
+        return ""
+    lib = r.get("library_b2b_ms")
+    return (f"; back to back {r['b2b_ms']:.4f} ms a call, library "
+            f"{'none' if lib is None else f'{lib:.4f}'} ms")
 
 
 def weighted(per_shape, launches_by_shape, key):
@@ -3341,7 +3448,7 @@ def tenant_phase():
                     f"eager call), plain {r['plain_ms']:.4f} ms, library "
                     f"{r['library_ms']}, bound {r['bound_ms']:.6f} ms (bytes), "
                     f"{runs[ds].by_shape[name].get(s_, 0)} launches in the timed "
-                    f"run, mean of {r['calls']} calls")
+                    f"run, mean of {r['calls']} calls{b2b_note(r)}")
         mper, mlb = timed_rows["tenants-mixed"][name], runs["tenants-mixed"].by_shape[name]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3361,6 +3468,13 @@ def tenant_phase():
                 "library_ms": weighted(mper, mlb, "library_ms"),
             },
         })
+    entries[1]["device_ops_by_shape"] = {
+        ds: gate_ops(rec, ds, "lex_sort", sort_ops, "[15]")
+        for ds in ("tenants-pure", "tenants-mixed")}
+    for key in ("library_ms", "b2b_ms", "library_b2b_ms"):
+        entries[1][f"{key}_by_shape"] = {
+            shape_name(s_): per_[key]
+            for s_, per_ in timed_rows["tenants-pure"]["lex_sort"].items()}
     # pack_sort's share of a wave's device time (its time includes the
     # lex_sort it runs), per wave of the timed pure-OR run
     ms_pack = {s_: r["ms"] for s_, r in timed_rows["tenants-pure"]["pack_sort"].items()}
@@ -3696,12 +3810,28 @@ def dp_search(dp, rec: Recorder, dev0, frontier_keys=None):
     from ketotpu_torch.engine import xutil
 
     rng = np.random.default_rng(SEED_SEARCH)
-    # each key set as one int32[4, N] block (no copy inside the timed call)
-    sets = {"tuples": torch.stack(
-        xutil.lex_sort(torch.from_numpy(dp.tuples).to(dev0))[0])}
+    # each key set sorted by lex_sort, held against its plain version (the
+    # 10.6M tuple rows at 4 x 32 bits: 16 digit passes), as one int32[4, N]
+    # block (no copy inside the timed call)
+    unsorted = {"tuples": (torch.from_numpy(dp.tuples).to(dev0), None)}
     if frontier_keys is not None:
         keys, bits = frontier_keys
-        sets["frontier"] = torch.stack(xutil.lex_sort(keys.to(dev0), bits=bits)[0])
+        unsorted["frontier"] = (keys.to(dev0), bits)
+    sets = {}
+    for name, (keys, bits) in unsorted.items():
+        rec.tag = ("sort", ("sort", name, keys.shape[1], keys.shape[0]))
+        rec.dispatches[rec.tag] += 1
+        sets[name] = torch.stack(rec.run("lex_sort", keys, bits=bits)[0])
+        log(f"[16] lex_sort of the {keys.shape[1]} {name} rows ({keys.shape[0]} "
+            f"key columns, bits {bits or 'all 32'}): kernel == plain, keys row "
+            f"for row")
+    sort_rows = time_kernels(dp.g, rec, "sort", ("lex_sort",))["lex_sort"]
+    sort_ops_by = gate_ops(rec, "sort", "lex_sort", sort_ops, "[16]")
+    for shape, r in sort_rows.items():
+        log(f"[16] lex_sort {shape_name(shape)}: {r['ms']:.4f} ms on the card "
+            f"(host {r['host_ms']:.4f} ms per eager call), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.6f} ms (bytes){b2b_note(r)}")
     searches = {}
     for name, keys in sets.items():
         queries, must, where = search_queries(keys, SEARCH_Q, rng)
@@ -3747,7 +3877,12 @@ def dp_search(dp, rec: Recorder, dev0, frontier_keys=None):
             f"call), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
             f"bound {r['bound_ms']:.6f} ms (bytes)")
     source, replaces = SEARCH_KERNELS["lex_searchsorted"]
-    return {
+    sorts = {shape_name(s): {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms", "b2b_ms",
+                                               "library_b2b_ms")}
+             | {"device_ops": sort_ops_by[shape_name(s)]}
+             for s, r in sort_rows.items()}
+    return sorts, {
         "name": "lex_searchsorted", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": rec.err["lex_searchsorted"],
@@ -3790,10 +3925,10 @@ def dp_phase(dp, frontier_keys=None, devices=None):
     finally:
         del oracle.check_is_member
     t0 = time.perf_counter()
-    entry = dp_search(dp, rec, dev0, frontier_keys)
+    sorts, entry = dp_search(dp, rec, dev0, frontier_keys)
     log(f"[16] (c) in {time.perf_counter() - t0:.1f} s")
     return SimpleNamespace(entry=entry, launches=fast["served"]["launches"],
-                           fast=fast)
+                           fast=fast, sorts=sorts)
 
 
 def dp_only() -> int:
@@ -4216,6 +4351,8 @@ def main() -> int:
 
     # -- 11. timing ------------------------------------------------------------
     rows = time_kernels(g, rec, "main", KERNELS, sample=MAIN_TIMED_SAMPLE)
+    # K4 is one launch of one thread-block cluster (csrc/arena.cu)
+    arena_ops = gate_ops(rec, "main", "arena_assign", lambda a, k: 1, "[11]")
     mrows = time_kernels(g, rec, "mixed-main", sample=MAIN_TIMED_SAMPLE)
     forced = time_kernels(g, rec, "mixed-main-forced", GEN_KERNELS,
                           sample=MAIN_TIMED_SAMPLE)
@@ -4231,7 +4368,7 @@ def main() -> int:
                 f"card (host enqueue incl. {r['host_ms']:.4f} ms), plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
                 f"{r['bound_ms']:.5f} ms (bytes), {c} launches in the timed "
-                f"pure-OR run, mean of {r['calls']} calls")
+                f"pure-OR run, mean of {r['calls']} calls{b2b_note(r)}")
         for s, c in mlb.items():
             mbusy += mper[s]["ms"] * c
         line.append({
@@ -4252,6 +4389,10 @@ def main() -> int:
                 "ms_by_shape": {shape_name(s): mper[s]["ms"] for s in mlb},
             },
         })
+        if name == "arena_assign":
+            for key in ("library_ms", "b2b_ms", "library_b2b_ms"):
+                line[-1][f"{key}_by_shape"] = {shape_name(s): per[s][key] for s in lb}
+            line[-1]["device_ops_by_shape"] = arena_ops
     for name, (source, replaces) in GEN_KERNELS.items():
         per, lb = mrows[name], mby_shape[name]
         every = {**per, **forced[name]}
@@ -4404,6 +4545,8 @@ def main() -> int:
     for entry in line:
         if dpr.launches.get(entry["name"]):
             entry["dp_path"] = {"launches": dpr.launches[entry["name"]]}
+        if entry["name"] == "lex_sort":
+            entry["phase16_sorts"] = dpr.sorts
     line.append(dpr.entry)
     log(f"[16] data-parallel phase in {time.perf_counter() - t0:.1f} s")
     log(f"[16] total {time.perf_counter() - t_start:.1f} s")

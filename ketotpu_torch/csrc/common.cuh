@@ -1,6 +1,7 @@
 // Shared device code of the tier-1 BFS kernels: the argument structs the
 // ctypes wrappers fill (ketotpu_torch/kernels.py mirrors their layout field
-// for field), the 32-bit table hash, and the bucketed hash probe.
+// for field), the 32-bit table hash, the bucketed hash probe, and the
+// count of a kernel's blocks the card holds at once (resident_blocks).
 //
 // Replaces, as inlined device functions, the JAX package's
 // engine/hashtab.py:81 mix_device and :445 lookup (K1) and
@@ -187,6 +188,25 @@ __device__ __forceinline__ int32_t row_deg_ov(const Graph& g, int32_t node,
 
 KT_EXPORT const char* kt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// Blocks of `kernel` (threads a block, no dynamic shared memory) that the
+// current device holds at once, cached per device in cache[64]; 0 where
+// the runtime cannot tell.  A grid no larger than this has every block
+// running at once, so a block may wait on any other (decoupled look-back).
+static inline int resident_blocks(const void* kernel, int threads, int* cache) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+    if (cache[dev] == 0) {
+        int per_sm = 0, sms = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) !=
+                cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            return 0;
+        }
+        cache[dev] = per_sm * sms;
+    }
+    return cache[dev];
 }
 
 static inline int kt_blocks(int64_t n, int threads) {

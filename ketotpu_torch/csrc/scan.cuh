@@ -1,9 +1,17 @@
-// Multi-block exclusive prefix sum of int32, shared by arena.cu (the
-// arena offsets of xutil.arena_assign) and pack.cu (the survivor positions
-// of fastpath._pack_scatter).  Three passes: a block scan per tile with
-// warp shuffles, one block scanning the tile sums (in chunks with a carry,
-// so any length works), and a fix-up add.  Each grid-wide barrier between
-// them is a launch boundary.
+// Prefix sums of int32, shared by arena.cu (the arena offsets of
+// xutil.arena_assign), pack.cu (the survivor positions of
+// fastpath._pack_scatter and the segment ranks of fastpath._pack_sort),
+// algebra.cu (gen_collect), shard.cu (shard_route) and sort.cuh (the
+// digit offsets of a radix pass).
+//
+// Building blocks: block_exclusive_scan, one block's scan of one value per
+// thread with warp shuffles, and block_scan_items, of several consecutive
+// values per thread (arena.cu's one-launch scan, in which every block
+// scans every count).  And the three-launch multi-block scan enqueue_scan
+// (a block scan per tile, one block scanning the tile sums in chunks with
+// a carry, so any length works, and a fix-up add), whose grid-wide
+// barriers are launch boundaries; pack.cu, algebra.cu and shard.cu still
+// use it.
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +46,19 @@ __device__ int32_t block_exclusive_scan(int32_t v, int32_t* block_total) {
     *block_total = warp_sums[nwarps - 1];
     __syncthreads();  // warp_sums may be reused by the caller's next tile
     return warp_off + x - v;
+}
+
+// A block's exclusive scan of ITEMS consecutive values per thread (thread
+// t holds values t * ITEMS .. t * ITEMS + ITEMS - 1 in v): returns the sum
+// of every earlier thread's values, the base from which the thread runs
+// through its own; *block_total receives the block's sum.
+template <int ITEMS>
+__device__ int32_t block_scan_items(const int32_t (&v)[ITEMS],
+                                    int32_t* block_total) {
+    int32_t sum = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) sum += v[k];
+    return block_exclusive_scan(sum, block_total);
 }
 
 // Pass 1: per-tile exclusive scan; tile sums to block_sums.

@@ -33,7 +33,8 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises):
 
 :func:`run_fast_packed` enqueues every level of a batch on the current
 stream with no host sync; the caller fetches verdicts and occupancy with
-one device-to-host copy (:meth:`Packed.fetch`).  Its level loop,
+one device-to-host copy (:meth:`Packed.fetch`); :func:`run_fast` runs the
+same body from unpacked columns and returns the bits.  Its level loop,
 :func:`_level_loop`, also runs the algebra program's leaf sub-run
 (``engine/algebra.py``) from a leaf buffer in place of the roots, and its
 pass over a device-resident query block, :func:`_fast_pass`, is tier 1 of
@@ -917,6 +918,44 @@ def run_fast_packed_plain(
                        max_width, boost, mults)
 
 
+def run_fast(
+    g: Tables,
+    q_ns,
+    q_obj,
+    q_rel,
+    q_subj,
+    q_depth,
+    active=None,
+    *,
+    frontier: int = 8192,
+    arena: int = 32768,
+    max_depth: int = 5,
+    max_width: int = 100,
+    boost: int = 1,
+) -> "FastResult":
+    """The JAX ``run_fast``: one batch's pure-OR BFS to completion from five
+    id columns (int32[Q] each, numpy or tensors) and an ``active`` mask
+    (default all), enqueued with no host sync.  Exactly ``max_depth``
+    levels, roots clamped to that depth, the last level probe-only: the
+    body of :func:`run_fast_packed` (``_fast_pass``) without the packed
+    I/O.  Returns the :class:`FastResult` bits (bool[Q], ``dirty``
+    included) on the tables' device."""
+    dev = g["row_ptr"].device
+    q = q_ns.shape[0]
+    if q > frontier:
+        raise ValueError(f"batch {q} exceeds frontier capacity {frontier}")
+    act = np.ones(q, bool) if active is None else active
+    qp = torch.stack([
+        (c if isinstance(c, torch.Tensor) else torch.from_numpy(np.asarray(c)))
+        .to(device=dev, dtype=torch.int32)
+        for c in (q_ns, q_obj, q_rel, q_subj, q_depth, act)])
+    sched = level_schedule(q, frontier, arena, max_depth, boost)
+    occ = torch.empty(len(sched), dtype=torch.int32, device=dev)
+    found, over, dirty = _fast_pass(_OPS, g, qp, qp[5], sched,
+                                    max_width=max_width, occ=occ)
+    return FastResult(found=found.bool(), over=over.bool(), dirty=dirty.bool())
+
+
 class _Ops(NamedTuple):
     init_state: object
     probe_level: object
@@ -1024,7 +1063,8 @@ NO_CLAMP = 2**31 - 1
 
 
 class FastResult(NamedTuple):
-    """The verdict bits of a query-data-parallel check (bool[Q] each)."""
+    """The verdict bits of :func:`run_fast` and of a query-data-parallel
+    check (bool[Q] each)."""
 
     found: Tensor  # membership established (monotone)
     over: Tensor  # a capacity overflow touched this query

@@ -16,7 +16,7 @@ and runs its plain PyTorch version on CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +62,26 @@ def _arena_assign_plain(counts: Tensor, arena_size: int):
     return offsets, total, parent, ordinal
 
 
+#: csrc/arena.cu kArenaTile: tasks per tile of the chained scan
+ARENA_TILE = 512
+#: per CUDA device, the chained scan's state: int32 [ticket, finished
+#: blocks, then two words per tile's status]; zeroed once here, left zeroed
+#: by every call (the last block to finish clears what the call used)
+_ARENA_STATE: Dict[int, Tensor] = {}
+
+
+def _arena_state(dev: torch.device, tiles: int) -> Tensor:
+    """The device's chained-scan state, grown (zeroed) to hold ``tiles``
+    tiles.  Calls on one device share it, so they run in stream order."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    state = _ARENA_STATE.get(index)
+    if state is None or (state.shape[0] - 2) // 2 < tiles:
+        cap = max(64, 1 << max(tiles - 1, 0).bit_length())
+        state = _ARENA_STATE[index] = torch.zeros(2 + 2 * cap, dtype=torch.int32,
+                                                  device=dev)
+    return state
+
+
 def _arena_assign_cuda(counts: Tensor, arena_size: int):
     kernels.require(counts, torch.int32, "counts")
     n = counts.shape[0]
@@ -70,11 +90,12 @@ def _arena_assign_cuda(counts: Tensor, arena_size: int):
     total = torch.empty(1, dtype=torch.int32, device=dev)
     parent = torch.empty(arena_size, dtype=torch.int32, device=dev)
     ordinal = torch.empty(arena_size, dtype=torch.int32, device=dev)
-    block_sums = torch.empty(-(-max(n, 1) // 4096), dtype=torch.int32, device=dev)
+    state = _arena_state(dev, -(-n // ARENA_TILE))
     kernels.launch(
         "arena", "arena_assign", kernels.ptr(counts), n, arena_size,
         kernels.ptr(offsets), kernels.ptr(total), kernels.ptr(parent),
-        kernels.ptr(ordinal), kernels.ptr(block_sums), kernels.stream(),
+        kernels.ptr(ordinal), kernels.ptr(state), (state.shape[0] - 2) // 2,
+        kernels.stream(),
     )
     kernels.LAUNCHES["arena_assign"] += 1
     return offsets, total[0], parent, ordinal
@@ -82,9 +103,51 @@ def _arena_assign_cuda(counts: Tensor, arena_size: int):
 
 # -- the lexicographic sort ------------------------------------------------------
 
-_SORT_TILE = 1024  # csrc/sort.cuh kSortTile: rows per tile of a digit pass
-_SCAN_TILE = 4096  # csrc/scan.cuh kScanTile
+SORT_TILE = 1024  # csrc/sort.cuh kSortTile: rows per tile of a digit pass
+SORT_BINS = 256  # csrc/sort.cuh kSortBins: one 8-bit digit
 MAX_SORT_KEYS = 8  # csrc/sort.cuh kSortMaxKeys
+#: the sort's status words keep a count of rows in 30 bits
+MAX_SORT_ROWS = (1 << 30) - 1
+
+
+class SortLayout(NamedTuple):
+    """The kernel's plan for one sort (``csrc/sort.cuh``).
+
+    ``passes``: per digit pass, least significant first, (key column,
+    shift, flip the sign bit 0/1); ``perm_words``: the int32 permutation
+    scratch (double-buffered from three passes on); ``zeroed_words``: the
+    int32 scratch the call clears (per pass 256 histogram bins, one tile
+    counter and 256 status words per tile)."""
+
+    passes: Tuple[Tuple[int, int, int], ...]
+    perm_words: int
+    zeroed_words: int
+
+
+def sort_layout(n: int, bits: Sequence[int]) -> SortLayout:
+    """The digit passes and scratch sizes of a sort of ``n`` rows by key
+    columns of widths ``bits`` (column 0 most significant).  A width ``b``
+    gives ``ceil(b / 8)`` passes over its low bytes, none at 0; at 32 the
+    sign bit is flipped (negatives first).  Raises on a width outside [0,
+    32], more than :data:`MAX_SORT_KEYS` columns, or ``n`` past
+    :data:`MAX_SORT_ROWS`."""
+    widths = [int(b) for b in bits]
+    if not 1 <= len(widths) <= MAX_SORT_KEYS:
+        raise ValueError(f"{len(widths)} key columns: the kernel takes 1 to "
+                         f"{MAX_SORT_KEYS}")
+    if any(not 0 <= b <= 32 for b in widths):
+        raise ValueError(f"bits {widths}: one width in [0, 32] per key")
+    if not 0 <= n <= MAX_SORT_ROWS:
+        raise ValueError(f"{n} rows: the sort takes at most {MAX_SORT_ROWS} "
+                         f"(a 30-bit count per status word)")
+    passes = tuple((k, shift, int(widths[k] == 32))
+                   for k in reversed(range(len(widths)))
+                   for shift in range(0, widths[k], 8))
+    np_ = len(passes)
+    perm = 0 if np_ < 2 else n if np_ == 2 else 2 * n
+    tiles = -(-n // SORT_TILE)
+    zeroed = np_ * (SORT_BINS + 1 + tiles * SORT_BINS) if np_ else 0
+    return SortLayout(passes, perm, zeroed)
 
 
 def lex_sort(keys, *payload: Tensor, bits: Optional[Sequence[int]] = None):
@@ -123,11 +186,10 @@ def _lex_sort_cuda(keys: Tuple[Tensor, ...], payload: Tuple[Tensor, ...], bits,
     dev = keys[0].device
     n = keys[0].shape[0]
     nk, npay = len(keys), len(payload)
-    if nk > MAX_SORT_KEYS:
-        raise ValueError(f"{nk} key columns: the kernel takes at most {MAX_SORT_KEYS}")
     widths = [32] * nk if bits is None else [int(b) for b in bits]
-    if len(widths) != nk or any(not 0 <= b <= 32 for b in widths):
-        raise ValueError(f"bits {widths}: one width in [0, 32] per key")
+    if len(widths) != nk:
+        raise ValueError(f"bits {widths}: one width per key column ({nk})")
+    plan = sort_layout(n, widths)
     for i, c in enumerate(keys + payload):
         kernels.require(c, torch.int32, f"column {i}", shape=(n,), device=dev)
     # one int32[K, N] block: the caller's, when it passed one
@@ -140,18 +202,16 @@ def _lex_sort_cuda(keys: Tuple[Tensor, ...], payload: Tuple[Tensor, ...], bits,
     pay_out = torch.empty((npay, n), **i32)
     if n == 0:
         return tuple(keys_out), tuple(pay_out)
-    n_counts = 256 * -(-n // _SORT_TILE)
-    perms = torch.empty((2, n), **i32)
-    counts = torch.empty(n_counts, **i32)
-    total = torch.empty(1, **i32)
-    block_sums = torch.empty(-(-n_counts // _SCAN_TILE), **i32)
-    width_arr = (ctypes.c_int32 * nk)(*widths)
+    perms = torch.empty(plan.perm_words, **i32)
+    zeroed = torch.empty(plan.zeroed_words, **i32)
+    rows = (ctypes.c_int32 * (3 * max(len(plan.passes), 1)))(
+        *(v for p in plan.passes for v in p))
     kernels.launch(
-        "sort", "lex_sort", kernels.ptr(kb), nk,
-        ctypes.cast(width_arr, ctypes.c_void_p).value, kernels.ptr(pb), npay, n,
+        "sort", "lex_sort", kernels.ptr(kb), nk, kernels.ptr(pb), npay, n,
+        ctypes.cast(rows, ctypes.c_void_p).value, len(plan.passes),
         kernels.ptr(keys_out), kernels.ptr(pay_out) if npay else None,
-        kernels.ptr(perms[0]), kernels.ptr(perms[1]), kernels.ptr(counts),
-        kernels.ptr(total), kernels.ptr(block_sums), kernels.stream(),
+        kernels.ptr(perms), kernels.ptr(zeroed), plan.zeroed_words,
+        kernels.stream(),
     )
     kernels.LAUNCHES["lex_sort"] += 1
     return tuple(keys_out), tuple(pay_out)

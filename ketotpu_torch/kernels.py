@@ -145,6 +145,7 @@ def build() -> Dict[str, str]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
+_L = ctypes.c_int64
 
 
 class HashTab(ctypes.Structure):
@@ -215,7 +216,7 @@ _SIGNATURES = {
                         _P, _I, _P],
     },
     "arena": {
-        "arena_assign": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+        "arena_assign": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     },
     "children": {
         "expand_children": [Graph, Items, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -267,7 +268,7 @@ _SIGNATURES = {
         "shard_merge_child": [_P, _P, _I, _I, _I, MergeState, _P],
     },
     "sort": {
-        "lex_sort": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        "lex_sort": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _L, _P],
     },
     "search": {
         "lex_searchsorted": [_P, _I, _I, _P, _I, _P, _P, _P],

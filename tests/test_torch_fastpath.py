@@ -209,3 +209,28 @@ def test_run_fast_packed_forced_overflow(synth):
     codes = _compare_packed(jg, tg, qpack, frontier=256, arena=64, max_depth=5,
                             max_width=MAX_WIDTH)
     assert ((codes >> 1) & 1).sum() > 0, "the case must overflow"
+
+
+def test_run_fast_matches_jax(synth):
+    """The unpacked entry ``run_fast`` (the JAX ``_run_fused`` over the same
+    body as the packed batch): found, over and dirty bits, on a batch with
+    inactive rows, roots deeper than the schedule (clamped to it) and
+    caps small enough to overflow."""
+    g, snap, jg, tg = synth
+    # stored tuples asked back (found at the roots) and random checks
+    stored = [t for _, t in zip(range(32), g.store.all_tuples())]
+    queries = stored + jsynth.synth_queries(g, 256 - len(stored), seed=9)
+    qpack = _qpack(snap, queries, 5, 256)
+    rng = np.random.default_rng(11)
+    qpack[4] = rng.integers(0, 8, 256)  # depth 0 .. 7 against 5 levels
+    active = rng.random(256) < 0.9
+    kw = dict(frontier=256, arena=64, max_depth=5, max_width=MAX_WIDTH)
+    want = jfp.run_fast(jg, *qpack[:5], active, **kw)
+    got = tfp.run_fast(tg, *(torch.from_numpy(r) for r in qpack[:5]),
+                       torch.from_numpy(active), **kw)
+    for name in ("found", "over", "dirty"):
+        t = getattr(got, name)
+        assert t.dtype == torch.bool, name
+        assert np.array_equal(t.numpy(), _np(getattr(want, name))), name
+    assert got.over.any() and got.found.any()
+    assert not (got.found | got.over)[~torch.from_numpy(active)].any()

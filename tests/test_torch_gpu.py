@@ -76,6 +76,48 @@ def test_arena_scan_across_tiles(engine, n, arena):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("t,arena", [(8192, 16384), (32768, 65536)],
+                         ids=["first-pass", "retry"])
+@pytest.mark.parametrize("fill", ["sparse", "past-arena"])
+def test_arena_assign_at_the_served_shapes(t, arena, fill):
+    """K4 at the engine's first-pass (8,192 tasks, 16,384 slots) and retry
+    (32,768 / 65,536) shapes, with a total under the arena and past it:
+    offsets, total, parent and ordinal equal the plain version's, from one
+    device launch per call (where the profiler sees the card)."""
+    _needs_card()
+    rng = np.random.default_rng(t + len(fill))
+    counts = rng.integers(0, 8 if fill == "sparse" else 40, t)
+    counts[rng.random(t) < 0.7] = 0
+    counts = torch.from_numpy(counts.astype(np.int32)).cuda()
+    rec = chip_smoke.Recorder()
+    _off, total, _par, _ord = rec.run("arena_assign", counts, arena)
+    assert rec.err["arena_assign"] == 0
+    assert (int(total) > arena) == (fill == "past-arena")
+    ops = chip_smoke.device_ops(lambda: xutil.arena_assign(counts, arena))
+    if ops is not None:
+        assert len(ops) == 1, ops
+
+
+def test_arena_assign_leaves_its_state_zeroed():
+    """K4's chained scan keeps its ticket and status words in one buffer
+    per device across calls: after calls of changing sizes (one task,
+    more tiles than the card holds blocks at once, no task, a ragged tile,
+    the served first pass), each on an unaligned view, every result equals
+    the plain version's and the buffer is zero again."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    for t, a in ((1, 8), (600_000, 1 << 20), (0, 0), (1025, 9), (8192, 16384)):
+        c = np.concatenate([[0], rng.integers(0, 4, t)]).astype(np.int32)
+        counts = torch.from_numpy(c).cuda()[1:]
+        got = xutil.arena_assign(counts, a)
+        want = xutil._arena_assign_plain(counts, a)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (t, a)
+    torch.cuda.synchronize()
+    state = xutil._ARENA_STATE[torch.cuda.current_device()]
+    assert int(state.abs().sum()) == 0
+
+
 def test_engine_on_the_card_matches_the_oracle(engine):
     g, eng = engine
     queries = synth_queries(g, 512, seed=1)
@@ -597,6 +639,37 @@ def test_lex_sort_matches_its_plain_version(bits, n):
     kernels.reset_launches()
     rec.run("lex_sort", keys, *payload, bits=bits)
     assert rec.err["lex_sort"] == 0 and kernels.LAUNCHES["lex_sort"] == 1
+
+
+@pytest.mark.parametrize("n", [xutil.SORT_TILE - 1, xutil.SORT_TILE,
+                               xutil.SORT_TILE + 1, 16384, 65536])
+@pytest.mark.parametrize("keys_are", ["tenant-keys", "all-equal"])
+def test_lex_sort_at_tile_edges(n, keys_are):
+    """The onesweep sort at one tile of rows, one less and one more, and at
+    the tenant plane's pack sizes, on the pack's key widths (14, 16, 4, 32)
+    and on keys all equal (every row one digit in every pass: the payload
+    keeps its row order); then at most 2 + (digit passes) device
+    operations per call (the memset, the histograms, one launch per pass)
+    where the profiler sees the card."""
+    _needs_card()
+    bits = (14, 16, 4, 32)
+    rng = np.random.default_rng(n)
+    if keys_are == "all-equal":
+        keys = np.tile(np.array([[5], [77], [3], [-9]], np.int32), (1, n))
+    else:
+        keys = np.stack([rng.integers(0, 1 << b, n) if b < 32 else
+                         rng.integers(-(1 << 31), 1 << 31, n) for b in bits])
+        keys[:, rng.integers(0, n, n // 3)] = keys[:, rng.integers(0, n, n // 3)]
+    keys = torch.from_numpy(keys.astype(np.int32)).cuda()
+    pay = torch.arange(n, dtype=torch.int32, device="cuda")
+    rec = chip_smoke.Recorder()
+    (_k, (sp,)) = rec.run("lex_sort", keys, pay, bits=bits)
+    assert rec.err["lex_sort"] == 0
+    if keys_are == "all-equal":
+        assert torch.equal(sp, pay)
+    ops = chip_smoke.device_ops(lambda: xutil.lex_sort(keys, pay, bits=bits))
+    if ops is not None:
+        assert len(ops) <= 2 + len(xutil.sort_layout(n, bits).passes), ops
 
 
 def _sort_children(rng, a, q, dev, as_rows):
